@@ -6,7 +6,8 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    K1 (kernels/csrc/query_kernel.cu) compiled by nvcc for sm_90a.
+2. build    K1, K2 and K3 (kernels/csrc/{query_kernel,tvl1_level,window_warp}.cu)
+            compiled by nvcc for sm_90a, one process each, all at once.
 3. k1       K1 against its plain PyTorch version on the card at Q=16, S=2,
             K=3, D=1024, N=65,536+77 (ragged edge), ~25% mask holes: f32 and
             bf16 index, both epilogues, both target modes; rtol 1e-5 /
@@ -21,6 +22,23 @@ Phases, each printing its own lines; any failure exits non-zero:
             set (resident banded path), p50 of 5; (b) 16 queries x 1,000,000
             segments bf16 through fused_query_topk(k=20), p50 of 10, kernel
             and plain version.
+6. k3       K3 (window warp) against its plain version on the card: 400 pairs
+            at the camera grid 48x64 and the flow grid 128x128 (d=4) and at a
+            64-wide grid, separable and full, rough random flow beyond the
+            clamp; rtol 1e-5 / atol 1e-6.
+7. k2       K2 (TV-L1 level) against its plain version on 400 key pairs at
+            each production level (128, 64, 32, 16 px square; window
+            max(2, round(6 * 0.5**level)); PRODUCTION_TVL1.at_level) and at
+            the rescue window d=12; at most 1e-3 px of flow apart.
+8. extract  a synthetic 340x256 video (pan, zoom, a moving object; 8 full
+            10 s clips and a tail) through the extraction CLI's code path
+            (random seeded TSN, production config, warped flow) into a CSV
+            tree; the port's loader ingests it and the broker runs new ->
+            revise -> finalize on it on the card. K1, K2 and K3 must launch.
+            One clip's 125 quantised flow pairs from the card equal the
+            plain versions' on the CPU in >= 99.9% of bytes, never more than
+            1 apart. p50 of an 8-clip batch, and its flow with the kernels
+            and with the plain versions.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -44,6 +62,11 @@ FIXTURES = os.path.join(REPO, "tests", "data", "features",
                         "stock-video-clips_features")
 K1_SOURCE = "videoquery_torch/kernels/csrc/query_kernel.cu"
 K1_REPLACES = "videoquery/kernels/query_pallas.py:35"
+K2_SOURCE = "videoquery_torch/kernels/csrc/tvl1_level.cu"
+K2_REPLACES = "videoquery/kernels/tvl1_pallas.py:59"
+K3_SOURCE = "videoquery_torch/kernels/csrc/window_warp.cu"
+K3_REPLACES = "videoquery/kernels/tvl1_pallas.py:263"
+FLOW_ATOL_PX = 1e-3  # K2 vs plain: same operations in the same order
 RTOL, ATOL = 1e-5, 1e-6  # tests/test_pallas.py: only the order of sums differs
 STREAMS = ("rgb", "warped_optical_flow")
 
@@ -66,11 +89,16 @@ def ptxas_summary(build_log: str) -> list[str]:
 
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '.*query_kernelI(\w+?)Li(\d+)ELb(\d)E", line)
+        m = re.search(r"Compiling entry function '([^']*)'", line)
         if m:
-            kind = "bf16" if "bfloat16" in m.group(1) else "f32"
-            epi = "scores" if m.group(3) == "1" else "avg+counts"
-            name = f"query_kernel<{kind}, {m.group(2)} queries/thread, {epi}>"
+            k1 = re.search(r"query_kernelI(\w+?)Li(\d+)ELb(\d)E", m.group(1))
+            if k1:
+                kind = "bf16" if "bfloat16" in k1.group(1) else "f32"
+                epi = "scores" if k1.group(3) == "1" else "avg+counts"
+                name = f"query_kernel<{kind}, {k1.group(2)} queries/thread, {epi}>"
+            else:  # "..._cu_<hash>9pd_kernelE...": the identifier after a length
+                found = re.findall(r"\d([a-z]+(?:_[a-z]+)*_kernel)E", m.group(1))
+                name = found[-1] if found else m.group(1)
         elif name and "spill stores" in line:
             spill = line.strip()
         elif name and "registers" in line:
@@ -171,9 +199,10 @@ def phase_k1(dev) -> float:
 
 # -- phase 4 ------------------------------------------------------------------
 
-def run_fixture_lifecycle(device, exact: bool, report_dir: str):
-    """new -> revise -> finalize over the fixture CSVs; returns the states
-    after each round, the matched clip ids of each round and the API."""
+def run_fixture_lifecycle(device, exact: bool, report_dir: str, root: str = FIXTURES):
+    """new -> revise -> finalize over a feature-CSV tree (the fixtures by
+    default); returns the states after each round, the matched clip ids of
+    each round and the API."""
     from videoquery.testing.fake_api import FakeAPI, FakeClient
     from videoquery_torch.core.config import HyperParams
     from videoquery_torch.service.compute_matches import compute_matches
@@ -181,7 +210,7 @@ def run_fixture_lifecycle(device, exact: bool, report_dir: str):
     from videoquery_torch.service.repository import APIRepository
 
     api = FakeAPI()
-    n_rows = DBLoader(FakeClient(api)).load_tree(FIXTURES)
+    n_rows = DBLoader(FakeClient(api)).load_tree(root)
     clip_ids = sorted(api.video_clips)
     video_id = next(iter(api.videos))
     ref = next(c for c in clip_ids if api.video_clips[c]["clip"] == 1)
@@ -358,6 +387,217 @@ def phase_query(dev, n_segments=1_000_000, q=16, k=20, repeats=10) -> dict:
     return {"query_ms": kern, "query_plain_ms": plain, "err": errs[0]}
 
 
+# -- phase 6 ------------------------------------------------------------------
+
+def cuda_ms(fn, repeats: int = 10) -> float:
+    """Mean device time of fn() in ms over `repeats` launches (CUDA events),
+    after one warm-up call."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def smooth_frames(n: int, h: int, w: int, dev, seed: int):
+    """[n, h, w] f32 textures in [0, 1] (box-blurred noise) on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((n, 1, h, w), generator=g, device=dev)
+    x = F.avg_pool2d(F.pad(x, (2, 2, 2, 2), mode="replicate"), 5, 1)
+    x = x - x.amin(dim=(2, 3), keepdim=True)
+    return (x / x.amax(dim=(2, 3), keepdim=True))[:, 0].contiguous()
+
+
+def phase_k3(dev) -> dict:
+    """K3 vs its plain version at the production shapes; rough flow."""
+    import torch
+
+    from videoquery_torch.kernels import window_warp as k3
+
+    errs: list[float] = []
+    times = {}
+    g = torch.Generator(device=dev).manual_seed(3)
+    for (n, h, w) in ((400, 48, 64), (400, 128, 128), (400, 64, 64)):
+        img = smooth_frames(n, h, w, dev, seed=h + w)
+        u = (torch.rand((n, h, w), generator=g, device=dev) * 12 - 6).contiguous()
+        v = (torch.rand((n, h, w), generator=g, device=dev) * 12 - 6).contiguous()
+        for sep in (True, False):
+            got = k3.window_warp(img, u, v, 4, sep)
+            want = k3.window_warp_reference(img, u, v, 4, sep)
+            check_close(f"K3 {n}x{h}x{w} separable={sep}", got, want, errs)
+            if (h, w) == (128, 128) and sep:
+                times["ms"] = cuda_ms(lambda: k3.window_warp(img, u, v, 4, True))
+                times["plain_ms"] = cuda_ms(
+                    lambda: k3.window_warp_reference(img, u, v, 4, True))
+        log(f"[k3] {n} x {h}x{w}, d=4, separable and full: agree with the plain "
+            f"version (max abs err {max(errs):.3e})")
+    log(f"[k3] 400 x 128x128 separable: K3 {times['ms']:.4f} ms, plain "
+        f"{times['plain_ms']:.4f} ms (CUDA events, mean of 10)")
+    return {"err": max(errs), **times}
+
+
+# -- phase 7 ------------------------------------------------------------------
+
+def phase_k2(dev) -> dict:
+    """K2 vs its plain version on one batch of key pairs at each production
+    level, and at the rescue window."""
+    import torch
+
+    from videoquery_torch.kernels import tvl1_level as k2
+    from videoquery_torch.kernels.window_warp import window_warp_reference
+    from videoquery_torch.pipeline.extract import PRODUCTION_TVL1
+
+    p = PRODUCTION_TVL1
+    cases = [(i, 128 >> i, max(2, round(6 * 0.5 ** i))) for i in range(4)]
+    cases.append((0, 128, 12))                       # the rescue window
+    err_max, times = 0.0, {}
+    g = torch.Generator(device=dev).manual_seed(7)
+    for level, size, d in cases:
+        n = 400 if d != 12 else 125
+        i0 = smooth_frames(n, size, size, dev, seed=size + d)
+        # I1: I0 moved by a smooth flow of up to ~d/2 px, plus noise
+        sh = torch.full((n, size, size), 0.4 * d, device=dev)
+        i1 = window_warp_reference(i0, -sh, 0.5 * sh, d)
+        i1 = (i1 + 0.01 * torch.rand(i1.shape, generator=g, device=dev)).contiguous()
+        u0 = torch.zeros_like(i0)
+        pl = p.at_level(level)
+        u, v = k2.tvl1_level(i0, i1, u0, u0, pl, d)
+        ur, vr = k2.tvl1_level_reference(i0, i1, u0, u0, pl, d)
+        err = max(float((u - ur).abs().max()), float((v - vr).abs().max()))
+        err_max = max(err_max, err)
+        if err > FLOW_ATOL_PX or not (torch.isfinite(u).all() and torch.isfinite(v).all()):
+            raise AssertionError(f"K2 level {level} ({size}px, d={d}): max |flow "
+                                 f"diff| {err:.3e} px beyond {FLOW_ATOL_PX} px")
+        ms = cuda_ms(lambda: k2.tvl1_level(i0, i1, u0, u0, pl, d), 5)
+        plain = cuda_ms(lambda: k2.tvl1_level_reference(i0, i1, u0, u0, pl, d), 3)
+        times[(size, d)] = (ms, plain)
+        log(f"[k2] {n} pairs {size}x{size} d={d} ({pl.n_warps} warps x {pl.n_iters} "
+            f"iters): max |flow diff| {err:.3e} px; K2 {ms:.3f} ms, plain {plain:.3f} ms; "
+            f"mean |u| {float(u.abs().mean()):.3f} px")
+    ms, plain = times[(128, 6)]
+    return {"err": err_max, "ms": ms, "plain_ms": plain,
+            "levels": {f"{s}px_d{d}": t for (s, d), t in times.items()}}
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+def write_synthetic_video(path: str, n_frames: int, seed: int = 0) -> None:
+    """340x256 BGR mp4: a textured scene under a camera pan and a slow zoom,
+    with a bright square moving across it."""
+    import cv2
+    import numpy as np
+
+    w, h = 340, 256
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 255, (h * 3, w * 3, 3), np.uint8)
+    base = cv2.GaussianBlur(base, (21, 21), 5)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 15, (w, h))
+    if not writer.isOpened():
+        raise IOError("cv2.VideoWriter failed to open (mp4v codec missing?)")
+    for i in range(n_frames + 1):            # +1: the decoder skips frame 0
+        z = 1.0 + 0.1 * np.sin(i / 40.0)     # zoom
+        tx = w + 60 * np.sin(i / 25.0)       # pan, up to ~2.4 px/frame
+        ty = h + 1.5 * (i % 150) - 100
+        m = np.float32([[z, 0, -tx], [0, z, -ty]])
+        frame = cv2.warpAffine(base, m, (w, h), borderMode=cv2.BORDER_REFLECT)
+        x0 = int(40 + (i * 4) % (w - 80))
+        frame[100:140, x0:x0 + 40] = (240, 240, 250)
+        writer.write(np.ascontiguousarray(frame))
+    writer.release()
+
+
+def phase_extract(dev, tmp: str) -> dict:
+    """Video -> CSV tree -> broker round on the card (the extraction path)."""
+    import numpy as np
+    import torch
+
+    from videoquery.pipeline import decode
+    from videoquery_torch.kernels import query as k1, tvl1_flow
+    from videoquery_torch.kernels import tvl1_level as k2, window_warp as k3
+    from videoquery_torch.nn.tsn import TwoStreamTSN
+    from videoquery_torch.pipeline import extract
+
+    video = os.path.join(tmp, "synthetic_pan_zoom.mp4")
+    out = os.path.join(tmp, "features")
+    n_frames = 8 * 150 + 40                        # 8 full clips + a 40-frame tail
+    t0 = time.perf_counter()
+    write_synthetic_video(video, n_frames)
+    log(f"[extract] wrote {n_frames} frames at 340x256 in {time.perf_counter() - t0:.1f} s")
+
+    # the main path: the CLI's code, then the broker round on its CSVs
+    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+    t0 = time.perf_counter()
+    extract.main([video, "--out", out, "--seed", "0"])
+    t_cli = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as reports:
+        states, rounds, api, qid, n_rows = run_fixture_lifecycle(
+            dev, exact=False, report_dir=reports, root=out)
+    launches = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K3": k3.LAUNCHES}
+    log(f"[extract] CLI: {t_cli:.1f} s for 9 clips incl. decode and the first "
+        f"batch's warm-up; loader ingested {n_rows} rows")
+    log(f"[extract] broker on the extracted CSVs: states {states}, matches per "
+        f"round {[len(r) for r in rounds]}; launches {launches}")
+    assert n_rows == 9 * 6, n_rows
+    assert states == [4, 4, 7], states
+    assert all(rounds), "a round selected no matches"
+    assert "min score for a match:" in api.uploaded_reports[qid], "no final report"
+    for name, n in launches.items():
+        assert n > 0, f"the extraction path never launched {name}"
+
+    # timings of one 8-clip batch, and one clip against the CPU
+    tsn = TwoStreamTSN.random(0, (1, 2, 3), dev)
+    ex = extract.Extractor(tsn, device=dev)
+    frames = decode.load_video(video, new_size=ex._decode_size())
+    batch = torch.from_numpy(np.stack([frames[i * 150:(i + 1) * 150]
+                                       for i in range(8)])).to(dev)
+    plan = ex._plan(150)
+
+    def step():
+        return extract.extract_step(tsn, batch, plan, ex.cfg, True, ex.tvl1)
+
+    step_ms = p50_ms(step, 3, warmup=1)
+    gray, vscale = extract._flow_gray_grid(batch, ex.cfg.flow_res_div)
+
+    def flow(g_):
+        return extract._pair_flow(g_, plan.pair_idx, ex.cfg.flow_bound, True, ex.tvl1,
+                                  vscale, plan.warm, ex.cfg.flow_warm_camera)
+
+    flow_ms = p50_ms(lambda: flow(gray), 3, warmup=1)
+    kernels = (tvl1_flow.tvl1_level, tvl1_flow.window_warp)
+    tvl1_flow.tvl1_level, tvl1_flow.window_warp = (k2.tvl1_level_reference,
+                                                   k3.window_warp_reference)
+    try:
+        flow_plain_ms = p50_ms(lambda: flow(gray), 3, warmup=1)
+    finally:
+        tvl1_flow.tvl1_level, tvl1_flow.window_warp = kernels
+    one_card = flow(gray[:1].contiguous()).cpu()
+    t0 = time.perf_counter()
+    one_cpu = extract._pair_flow(gray[:1].cpu(), plan.pair_idx.cpu(), ex.cfg.flow_bound,
+                                 True, ex.tvl1, vscale, tuple(x.cpu() for x in plan.warm),
+                                 ex.cfg.flow_warm_camera)
+    t_cpu = time.perf_counter() - t0
+    diff = (one_card.int() - one_cpu.int()).abs()
+    same = float((diff == 0).float().mean())
+    log(f"[extract] one clip's {one_card.shape[1]} pairs, card vs CPU plain versions "
+        f"({t_cpu:.1f} s on the CPU): {same:.6f} of bytes equal, max diff "
+        f"{int(diff.max())} LSB")
+    assert same >= 0.999 and int(diff.max()) <= 1, (same, int(diff.max()))
+    log(f"[extract] 8-clip batch (1,000 flow pairs, 1,200 BN-Inception forwards): "
+        f"p50 {step_ms:.1f} ms ({8e3 / step_ms:.2f} clips/s); its flow: kernels "
+        f"p50 {flow_ms:.1f} ms, plain versions p50 {flow_plain_ms:.1f} ms")
+    return {"launches": launches, "step_ms": step_ms, "flow_ms": flow_ms,
+            "flow_plain_ms": flow_plain_ms, "same": same}
+
+
 def main() -> int:
     import torch
 
@@ -380,18 +620,26 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from videoquery_torch.kernels import _build, query as k1
+    from videoquery_torch.kernels import tvl1_level as k2, window_warp as k3
 
+    sources = ("query_kernel.cu", "tvl1_level.cu", "window_warp.cu")
     t0 = time.perf_counter()
-    k1._library()
-    log(f"[build] K1 ready in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for line in ptxas_summary(_build.BUILD_LOG.get("query_kernel.cu", "")):
-        log(f"[build] {line}")
+    _build.build(sources)
+    k1._library(), k2._library(), k3._library()
+    log(f"[build] K1, K2, K3 ready in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source)")
+    for src in sources:
+        for line in ptxas_summary(_build.BUILD_LOG.get(src, "")):
+            log(f"[build] {src}: {line}")
 
     max_err = phase_k1(dev)
     launches = phase_broker(dev)
     rounds = phase_rounds(dev)
     query = phase_query(dev)
+    warp = phase_k3(dev)
+    level = phase_k2(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ext = phase_extract(dev, tmp)
 
     log(card_line())  # the card and its power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
@@ -404,6 +652,22 @@ def main() -> int:
         "round_ms_100k_q8": rounds["round_ms"],
         "avg_counts_ms_100k_q8": rounds["sim_ms"],
         "avg_counts_plain_ms_100k_q8": rounds["sim_plain_ms"],
+        "launches_extract_path": ext["launches"]["K1"],
+    }, {
+        "name": "K2 TV-L1 pyramid level (clamp, window warp, linearise, primal-dual)",
+        "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+        "launches": ext["launches"]["K2"], "max_abs_err": level["err"],
+        "ms": level["ms"], "plain_ms": level["plain_ms"],
+        "shape": "400 pairs 128x128, d=6, 2 warps x 10 iters, warped+separable",
+        "levels_ms_plain_ms": level["levels"],
+        "batch_flow_ms": ext["flow_ms"], "batch_flow_plain_ms": ext["flow_plain_ms"],
+        "batch_ms": ext["step_ms"], "clip_bytes_equal_cpu": ext["same"],
+    }, {
+        "name": "K3 window warp (separable and full)",
+        "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
+        "launches": ext["launches"]["K3"], "max_abs_err": warp["err"],
+        "ms": warp["ms"], "plain_ms": warp["plain_ms"],
+        "shape": "400 x 128x128, d=4, separable",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -145,6 +145,65 @@ class SearchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ExtractionConfig:
+    """Two-stream extraction pipeline configuration (reference
+    calcSig_wOF.py:156-189 and build_wof_clips.py:133-150). A copy of the
+    JAX package's without its streaming window; the comments there say why
+    each default was chosen."""
+
+    fps: int = 15
+    clip_seconds: int = 10
+    num_ticks: int = 25          # frames scored per clip (calcSig_wOF.py:165)
+    flow_stack_depth: int = 5    # flow stack (calcSig_wOF.py:185-189)
+    frame_resize: tuple[int, int] = (340, 256)  # (W, H), calcSig_wOF.py:94
+    crop_size: int = 224
+    feature_dim: int = 1024
+    feature_blob: str = "global_pool"
+    flow_bound: float = 20.0     # dense_flow -b 20 (build_wof_clips.py:70-73)
+    min_tail_seconds: int = 2    # remainder clip kept iff >= 2 s (build_wof_clips.py:105)
+    batch_clips: int = 8         # clips per device batch in the extractor
+    # flow runs at frame_res/flow_res_div; flow values are rescaled to
+    # native pixels before quantization
+    flow_res_div: int = 2
+    # temporal warm start: one keyframe pair per group solves the full
+    # pyramid, the others refine its flow at the finest level (0/1: off)
+    flow_warm_group: int = 3
+    # camera of a warm pair: "init" refines the key's homography with 3 LK
+    # iterations, "own" estimates it afresh, "key" reuses the key's
+    flow_warm_camera: str = "init"
+    # gray + flow-grid resize as two matmuls (bf16 operands on an
+    # accelerator, f32 on the CPU)
+    flow_gray_matmul: bool = True
+    # decode straight to frame_resize (one cv2 resize at decode time)
+    decode_at_target: bool = True
+    # compact uploads (host gray, host crop, host YUV 4:2:0); the port's
+    # extractor does not take them yet
+    host_gray: bool = False
+    host_crop: bool = False
+    host_yuv420: bool = False
+
+    def __post_init__(self):
+        if self.flow_warm_camera not in ("key", "own", "init"):
+            raise ValueError(
+                f"flow_warm_camera must be 'key', 'own' or 'init'; "
+                f"got {self.flow_warm_camera!r}")
+        if self.host_crop and not self.host_gray:
+            raise ValueError("host_crop requires host_gray=True "
+                             "(it crops the compact tick-frame upload)")
+        if self.host_yuv420:
+            if not self.host_crop:
+                raise ValueError("host_yuv420 requires host_crop=True "
+                                 "(it packs the cropped tick frames)")
+            if self.crop_size % 4:
+                raise ValueError("host_yuv420 needs crop_size % 4 == 0 "
+                                 "(I420 stores chroma rows pairwise)")
+
+    @property
+    def frames_per_clip(self) -> int:
+        return self.fps * self.clip_seconds
+
+
+@dataclasses.dataclass(frozen=True)
 class BrokerConfig:
     """Broker service configuration (reference broker.py:19-31, entrypoint.sh)."""
 

@@ -44,27 +44,47 @@ def nvcc_path() -> str:
                        "built from source at first use")
 
 
+def _library_path(source: str) -> str:
+    with open(os.path.join(_CSRC, source), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def build(sources) -> None:
+    """Compile every source of `sources` that has no library yet, one nvcc
+    process each, all started together."""
+    with _lock:
+        todo = [(s, _library_path(s)) for s in sources]
+        todo = [(s, p) for s, p in todo if not os.path.exists(p)]
+        if not todo:
+            return
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = []
+        for source, path in todo:
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, source)]
+            procs.append((source, path, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for source, path, tmp, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {source}:\n{out}")
+                continue
+            os.replace(tmp, path)
+            BUILD_LOG[source] = out
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
 def load(source: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<source>``, building it first
     if no library of this source and these flags exists yet."""
+    build([source])
     with _lock:
         lib = _libs.get(source)
-        if lib is not None:
-            return lib
-        src = os.path.join(_CSRC, source)
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-        stem = os.path.splitext(source)[0]
-        path = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, path)
-            BUILD_LOG[source] = proc.stdout + proc.stderr
-        lib = ctypes.CDLL(path)
-        _libs[source] = lib
+        if lib is None:
+            lib = _libs[source] = ctypes.CDLL(_library_path(source))
         return lib

@@ -1,0 +1,474 @@
+"""Two-stream feature extraction on one GPU: video -> per-clip signatures.
+
+Port of ``videoquery/pipeline/extract.py``'s pair path (the JAX package's
+``flow_impl="pallas"``). Per batch of clips, on the device:
+
+  frames u8 [B, F, H, W, 3] -> gray at the flow grid [B, F, fh, fw]
+      -> warped TV-L1 of the pairs the tick stacks use (K3 camera warps,
+         K2 levels; keyframe pairs solve the pyramid, warm pairs refine
+         their key's flow; clamp-saturated pairs are re-solved wider)
+      -> quantized flow stacks [B, T, fh, fw, 10] and rgb ticks
+      -> preprocess -> 2 streams x K splits of BN-Inception
+      -> {stream: [K, B, 1024]} signatures (ticks averaged)
+
+and reference-format CSVs from them (calcSig_wOF.py:116-134). The device is
+explicit: CUDA unless the caller (or ``VIDEOQUERY_DEVICE``) names the CPU,
+where the kernels' plain versions run. TF32 is turned off in the entry
+points: the camera's cross-correlation argmax moves under it.
+
+Not ported yet: the host-gray/crop/YUV compact uploads, streaming decode,
+multi-process decode, warm-start advection, the all-frames clip-flow path
+and mesh sharding.
+
+    python -m videoquery_torch.pipeline.extract synthetic --out feats/
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from videoquery.pipeline import decode
+from videoquery.pipeline.sampling import flow_pair_plan, flow_warm_plan, frame_ticks
+from videoquery_torch.core.config import FLOW, RGB, ExtractionConfig
+from videoquery_torch.core.device import resolve_device
+from videoquery_torch.index.csvio import write_features_csv
+from videoquery_torch.index.records import FeatureRecord
+from videoquery_torch.kernels.resize import linear_matrix, resize2
+from videoquery_torch.kernels.tvl1 import TVL1Params
+from videoquery_torch.kernels.tvl1_flow import (tvl1_flow, tvl1_flow_warm,
+                                                tvl1_warped_flow,
+                                                tvl1_warped_flow_cam,
+                                                tvl1_warped_flow_warm)
+from videoquery_torch.nn.tsn import TwoStreamTSN
+from videoquery_torch.pipeline.payload import (build_payload, flow_grid_shape,
+                                               plan_groups)
+from videoquery_torch.pipeline.preprocess import (preprocess_flow,
+                                                  preprocess_rgb,
+                                                  quantize_flow)
+
+log = logging.getLogger(__name__)
+
+# The production flow schedule (extract.py:65-69 of the JAX package, where
+# the choice is documented): 4 levels, 3 warps (2 at the finest two), 20
+# iterations (10 fine, 6 for a warm pair), gradients of the warped image,
+# homography camera, fast-motion rescue of up to 1/8 of the pairs.
+PRODUCTION_TVL1 = TVL1Params(n_scales=4, n_warps=3, fine_warps=2,
+                             n_iters=20, fine_iters=10, warm_iters=6,
+                             grad_source="warped",
+                             camera_model="homography",
+                             rescue_frac=0.125)
+
+
+def disable_tf32() -> None:
+    """Full-f32 matmuls and convolutions (cuDNN defaults to TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def warm_tvl1_params(tvl1: TVL1Params) -> TVL1Params:
+    """Refinement schedule of warm-started pairs: warm_warps passes at
+    warm_iters (else the fine or the coarse) iterations."""
+    return dataclasses.replace(
+        tvl1, n_warps=tvl1.warm_warps, fine_warps=tvl1.warm_warps,
+        fine_iters=None,
+        n_iters=tvl1.warm_iters or tvl1.fine_iters or tvl1.n_iters)
+
+
+def _rescue_fast_motion(i0, i1, u, v, warped: bool, tvl1: TVL1Params,
+                        max_disp: int = 6):
+    """Re-solve clamp-saturated pairs cold with a doubled window.
+
+    i0/i1 f32 [N, h, w] raw pair images, u/v their solved flow. A pair
+    triggers when its peak 4x4-pooled |flow| reaches rescue_trigger *
+    max_disp; the top rescue_frac of pairs by that peak are re-solved and
+    the triggered ones among them replaced. The JAX package does this under
+    lax.cond; here one host sync per batch decides. torch.topk may order
+    ties differently from lax.top_k, but only triggered pairs are replaced,
+    so the order of ties among the others does not matter."""
+    n, h, w = u.shape
+    k = max(1, int(round(n * tvl1.rescue_frac)))
+    mag = torch.maximum(u.abs(), v.abs())
+    pooled = mag[:, :h // 4 * 4, :w // 4 * 4].reshape(
+        n, h // 4, 4, w // 4, 4).mean(dim=(2, 4))
+    peak = pooled.reshape(n, -1).amax(dim=1)
+    trig = peak >= tvl1.rescue_trigger * max_disp
+    if not bool(trig.any()):
+        return u, v
+    idx = torch.topk(peak, k).indices
+    wide_fn = tvl1_warped_flow if warped else tvl1_flow
+    uw, vw = wide_fn(i0[idx].contiguous(), i1[idx].contiguous(), tvl1,
+                     max_disp=2 * max_disp)
+    sel = trig[idx][:, None, None]
+    u, v = u.clone(), v.clone()
+    u[idx] = torch.where(sel, uw, u[idx])
+    v[idx] = torch.where(sel, vw, v[idx])
+    return u, v
+
+
+def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
+                  tvl1: TVL1Params, warm_plan=None, warm_camera: str = "own"):
+    """Raw (u, v) flow of the selected frame pairs, f32 [B, P, h, w] in
+    flow-grid pixels. warm_plan (key_pos, warm_pos, warm_src) turns on the
+    temporal warm start (sampling.flow_warm_plan): key pairs solve the full
+    pyramid, the others refine their key's flow at the finest level; with
+    warm_camera "key" or "init" they take (and with "init" refine) the key
+    pair's camera."""
+    b, f, h, w = gray.shape
+    i0 = gray[:, pair_idx]
+    i1 = gray[:, pair_idx + 1]
+    p = pair_idx.shape[0]
+    flow_fn = tvl1_warped_flow if warped else tvl1_flow
+    if warm_plan is None or warm_plan[1].shape[0] == 0:
+        i0f = i0.reshape(b * p, h, w)
+        i1f = i1.reshape(b * p, h, w)
+        u, v = flow_fn(i0f, i1f, tvl1)
+        if tvl1.rescue_frac > 0:
+            u, v = _rescue_fast_motion(i0f, i1f, u, v, warped, tvl1)
+        return u.reshape(b, p, h, w), v.reshape(b, p, h, w)
+
+    key_pos, warm_pos, warm_src = warm_plan
+    k = key_pos.shape[0]
+    m = warm_pos.shape[0]
+    i0k = i0[:, key_pos].reshape(b * k, h, w)
+    i1k = i1[:, key_pos].reshape(b * k, h, w)
+    hn_warm = None
+    if warped and warm_camera in ("key", "init"):
+        uk, vk, hk = tvl1_warped_flow_cam(i0k, i1k, tvl1)
+        hn_warm = hk.reshape(b, k, 3, 3)[:, warm_src].reshape(b * m, 3, 3)
+    else:
+        uk, vk = flow_fn(i0k, i1k, tvl1)
+    uk = uk.reshape(b, k, h, w)
+    vk = vk.reshape(b, k, h, w)
+    u0 = uk[:, warm_src].reshape(b * m, h, w)
+    v0 = vk[:, warm_src].reshape(b * m, h, w)
+    i0w = i0[:, warm_pos].reshape(b * m, h, w)
+    i1w = i1[:, warm_pos].reshape(b * m, h, w)
+    if warped:
+        uw, vw = tvl1_warped_flow_warm(
+            i0w, i1w, u0, v0, warm_tvl1_params(tvl1), hn=hn_warm,
+            cam_refine_iters=3 if warm_camera == "init" else 0)
+    else:
+        uw, vw = tvl1_flow_warm(i0w, i1w, u0, v0, warm_tvl1_params(tvl1))
+    u = torch.zeros((b, p, h, w), dtype=torch.float32, device=gray.device)
+    v = torch.zeros_like(u)
+    u[:, key_pos] = uk
+    u[:, warm_pos] = uw.reshape(b, m, h, w)
+    v[:, key_pos] = vk
+    v[:, warm_pos] = vw.reshape(b, m, h, w)
+    if tvl1.rescue_frac > 0:
+        uf, vf = _rescue_fast_motion(i0.reshape(b * p, h, w),
+                                     i1.reshape(b * p, h, w),
+                                     u.reshape(b * p, h, w),
+                                     v.reshape(b * p, h, w), warped, tvl1)
+        u = uf.reshape(b, p, h, w)
+        v = vf.reshape(b, p, h, w)
+    return u, v
+
+
+def _pair_flow(gray, pair_idx, bound: float, warped: bool, tvl1: TVL1Params,
+               value_scale: tuple[float, float], warm_plan=None,
+               warm_camera: str = "own") -> torch.Tensor:
+    """Quantized flow of the selected pairs: u8 [B, P, h, w, 2]. value_scale
+    (sx, sy) converts flow-grid pixels to native pixels."""
+    u, v = _pair_flow_uv(gray, pair_idx, warped, tvl1, warm_plan, warm_camera)
+    uv = torch.stack([u * value_scale[0], v * value_scale[1]], dim=-1)
+    return quantize_flow(uv, bound)
+
+
+def _bf16_operands(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 and widened back: a product of two such values
+    is exact in f32, so an f32 matmul of them is a bf16 x bf16 -> f32 dot."""
+    return x.to(torch.bfloat16).float()
+
+
+def _flow_gray_grid(frames_u8: torch.Tensor, flow_res_div: int,
+                    matmul: bool = True):
+    """ITU-R 601 luma (BGR order, cv2 parity) at the flow grid. Returns
+    (gray f32 [B, F, fh, fw], (value_scale_x, value_scale_y)).
+
+    matmul=True folds the channel dot into the horizontal resize: two
+    matmuls with JAX's linear-resize matrices, bf16 operands with f32
+    accumulation on an accelerator and f32 operands on the CPU, as the JAX
+    package does."""
+    h0, w0 = frames_u8.shape[2:4]
+    if flow_res_div <= 1 or not matmul:
+        f32 = frames_u8.float()
+        gray = (0.114 * f32[..., 0] + 0.587 * f32[..., 1]
+                + 0.299 * f32[..., 2]) / 255.0
+        if flow_res_div <= 1:
+            return gray, (1.0, 1.0)
+        fh, fw = flow_grid_shape(h0, w0, flow_res_div)
+        return resize2(gray, (fh, fw)), (w0 / fw, h0 / fh)
+    b, f = frames_u8.shape[:2]
+    fh, fw = flow_grid_shape(h0, w0, flow_res_div)
+    dev = frames_u8.device
+    rv = torch.from_numpy(linear_matrix(h0, fh)).to(dev)          # [fh, h0]
+    rh = torch.from_numpy(linear_matrix(w0, fw).T.copy()).to(dev)  # [w0, fw]
+    wvec = torch.tensor([0.114, 0.587, 0.299], dtype=torch.float32,
+                        device=dev) / 255.0
+    whc = (rh[:, None, :] * wvec[None, :, None]).reshape(w0 * 3, fw)
+    cast = (lambda x: x) if dev.type == "cpu" else _bf16_operands
+    x = cast(frames_u8.reshape(b, f, h0, w0 * 3).float())
+    t = torch.matmul(x, cast(whc))                                # [B,F,h0,fw]
+    gray = torch.matmul(cast(rv), cast(t))                        # [B,F,fh,fw]
+    return gray, (w0 / fw, h0 / fh)
+
+
+@dataclasses.dataclass
+class StepPlan:
+    """Device index arrays of one clip length (cached per length)."""
+
+    tick_idx: torch.Tensor       # [T] 0-based rgb tick frames
+    stack_pos: torch.Tensor      # [T, D] positions into pair_idx
+    pair_idx: torch.Tensor       # [P] flow pairs the stacks use
+    warm: tuple | None           # (key_pos, warm_pos, warm_src) or None
+
+
+@torch.no_grad()
+def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
+                 cfg: ExtractionConfig, warped: bool, tvl1: TVL1Params):
+    """One batch: frames u8 [B, F, H, W, 3] BGR -> (rgb, flow) embeddings,
+    each [K, B, 1024]."""
+    gray, vscale = _flow_gray_grid(frames_u8, cfg.flow_res_div,
+                                   cfg.flow_gray_matmul)
+    flow_q = _pair_flow(gray, plan.pair_idx, cfg.flow_bound, warped, tvl1,
+                        vscale, plan.warm, cfg.flow_warm_camera)  # [B,P,h,w,2]
+    rgb_ticks = frames_u8[:, plan.tick_idx]                         # [B,T,H,W,3]
+    b = frames_u8.shape[0]
+    t, d = plan.stack_pos.shape
+    h, w = flow_q.shape[2:4]
+    stacks = flow_q[:, plan.stack_pos.reshape(-1)].reshape(b, t, d, h, w, 2)
+    # interleave x/y per depth -> channels [x1, y1, ..., xD, yD]
+    stacks = stacks.permute(0, 1, 3, 4, 2, 5).reshape(b, t, h, w, d * 2)
+    rgb_in = preprocess_rgb(rgb_ticks, cfg.frame_resize, cfg.crop_size)
+    flow_in = preprocess_flow(stacks, cfg.frame_resize, cfg.crop_size)
+    rgb_emb = tsn.rgb.embed(rgb_in.reshape((b * t,) + rgb_in.shape[2:]))
+    flow_emb = tsn.flow.embed(flow_in.reshape((b * t,) + flow_in.shape[2:]))
+    k = rgb_emb.shape[0]
+    return (rgb_emb.reshape(k, b, t, -1).mean(dim=2),
+            flow_emb.reshape(k, b, t, -1).mean(dim=2))
+
+
+@dataclasses.dataclass
+class ClipSignatures:
+    """Per-batch signatures; rgb/flow may be device tensors until
+    gather_signatures downloads them."""
+
+    clip_numbers: list[int]
+    rgb: "np.ndarray | torch.Tensor"   # [K, B, 1024]
+    flow: "np.ndarray | torch.Tensor"  # [K, B, 1024]
+    splits: tuple[int, ...]
+
+
+def gather_signatures(sigs: list[ClipSignatures]) -> list[ClipSignatures]:
+    """Download device signatures with one device-to-host copy."""
+    device = [s for s in sigs if isinstance(s.rgb, torch.Tensor)]
+    if not device:
+        return sigs
+    flat = torch.cat([torch.stack([s.rgb, s.flow]).reshape(2, s.rgb.shape[0], -1)
+                      for s in device], dim=2)                 # [2, K, sum(B)*D]
+    host = flat.float().cpu().numpy()
+    out, offset = [], 0
+    for s in sigs:
+        if not isinstance(s.rgb, torch.Tensor):
+            out.append(s)
+            continue
+        k, b, d = s.rgb.shape
+        chunk = host[:, :, offset:offset + b * d].reshape(2, k, b, d)
+        out.append(ClipSignatures(s.clip_numbers, chunk[0], chunk[1], s.splits))
+        offset += b * d
+    return out
+
+
+class Extractor:
+    """Two-stream signature extractor on one device."""
+
+    def __init__(self, tsn: TwoStreamTSN, cfg: ExtractionConfig | None = None,
+                 warped: bool = True, tvl1: TVL1Params | None = None, device=None):
+        self.cfg = cfg or ExtractionConfig()
+        self.tvl1 = tvl1 or PRODUCTION_TVL1
+        if self.cfg.host_gray:
+            raise ValueError("the compact host_gray upload is not ported yet")
+        if self.cfg.feature_blob != "global_pool":
+            # the net only computes global_pool; another name would label
+            # global_pool vectors wrongly in the CSVs
+            raise ValueError(f"feature_blob must be 'global_pool'; got "
+                             f"{self.cfg.feature_blob!r}")
+        if warped and self.tvl1.camera_model != "homography":
+            raise NotImplementedError("the port implements the homography "
+                                      "camera only")
+        self.device = resolve_device(device)
+        disable_tf32()
+        for net in tsn.rgb.nets + tsn.flow.nets:
+            net.to(self.device)
+        self.tsn = tsn
+        self.warped = warped
+        self._plans: dict[int, StepPlan] = {}
+
+    def _plan(self, f_len: int) -> StepPlan:
+        """Index arrays for a clip length, on the device, cached."""
+        plan = self._plans.get(f_len)
+        if plan is None:
+            cfg = self.cfg
+            pair_idx, stack_pos = flow_pair_plan(f_len, cfg.num_ticks,
+                                                 cfg.flow_stack_depth)
+
+            def dev(a):
+                return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
+
+            warm = None
+            if cfg.flow_warm_group > 1:
+                key_pos, warm_pos, warm_src = flow_warm_plan(pair_idx,
+                                                             cfg.flow_warm_group)
+                if warm_pos.size:
+                    warm = (dev(key_pos), dev(warm_pos), dev(warm_src))
+            plan = StepPlan(dev(frame_ticks(f_len, cfg.num_ticks, 1) - 1),
+                            dev(stack_pos), dev(pair_idx), warm)
+            self._plans[f_len] = plan
+        return plan
+
+    def extract_frames(self, frames: np.ndarray, clip_numbers=None
+                       ) -> Iterator[ClipSignatures]:
+        """frames: BGR uint8 [N, H, W, 3] of a whole video. Yields batches of
+        per-clip signatures (device tensors)."""
+        for group, nums in plan_groups(len(frames), self.cfg, clip_numbers):
+            payload = build_payload(frames, group, nums, self.cfg)
+            frames_dev = torch.from_numpy(payload.clip_rgb).to(self.device)
+            rgb, flow = extract_step(self.tsn, frames_dev, self._plan(payload.f_len),
+                                     self.cfg, self.warped, self.tvl1)
+            yield ClipSignatures(payload.nums, rgb, flow, self.tsn.rgb.splits)
+
+    def _decode_size(self) -> tuple[int, int] | None:
+        return self.cfg.frame_resize if self.cfg.decode_at_target else None
+
+    def extract_video(self, path: str) -> list[ClipSignatures]:
+        frames = decode.load_video(path, new_size=self._decode_size())
+        return gather_signatures(list(self.extract_frames(frames)))
+
+    # -- reference-format CSV output (calcSig_wOF.py:116-134 layout) ---------
+
+    def write_csv_tree(self, signatures: list[ClipSignatures], out_dir: str,
+                       video: str, video_url: str,
+                       modelname_fmt: str = "UCF101_split{split}",
+                       weights_uri_fmt: str = "ucf101_split{split}_tsn_{stream}_bn_inception.npz",
+                       ) -> list[str]:
+        """One CSV per (split, stream) under <out>/<video>/<modelname>/."""
+        if not signatures:
+            return []
+        signatures = gather_signatures(signatures)
+        paths = []
+        for ki, split in enumerate(signatures[0].splits):
+            d = os.path.join(out_dir, video, modelname_fmt.format(split=split))
+            os.makedirs(d, exist_ok=True)
+            for stream, attr in ((RGB, "rgb"), (FLOW, "flow")):
+                rows = []
+                for sig in signatures:
+                    rows.extend(zip(sig.clip_numbers, getattr(sig, attr)[ki]))
+                rows.sort(key=lambda r: r[0])
+                path = os.path.join(d, f"{stream}_{self.cfg.feature_blob}_features.csv")
+                write_features_csv(
+                    path, video, video_url, stream, self.cfg.feature_blob,
+                    weights_uri_fmt.format(split=split, stream=attr), rows)
+                paths.append(path)
+        return paths
+
+    def records(self, signatures: list[ClipSignatures],
+                clip_id_of: dict[int, int] | None = None) -> list[FeatureRecord]:
+        out = []
+        for sig in gather_signatures(signatures):
+            for ki, split in enumerate(sig.splits):
+                for bi, clip_no in enumerate(sig.clip_numbers):
+                    cid = clip_id_of[clip_no] if clip_id_of else clip_no
+                    out.append(FeatureRecord(cid, RGB, split, self.cfg.feature_blob,
+                                             sig.rgb[ki, bi]))
+                    out.append(FeatureRecord(cid, FLOW, split, self.cfg.feature_blob,
+                                             sig.flow[ki, bi]))
+        return out
+
+
+def main(argv=None) -> None:
+    """CLI: extract features for every video of a directory (or one video,
+    or a synthetic clip) into a reference-format CSV tree."""
+    import argparse
+    import glob
+
+    p = argparse.ArgumentParser(description="Two-stream TSN feature extraction "
+                                            "(PyTorch/CUDA port)")
+    p.add_argument("src", help="video file, directory of videos, or 'synthetic'")
+    p.add_argument("--out", required=True, help="output feature-CSV tree root")
+    p.add_argument("--weights", default=None,
+                   help="npz weight bundle dir (from convert_caffe); random if omitted")
+    p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--splits", type=int, nargs="+", default=[1, 2, 3])
+    p.add_argument("--num_ticks", type=int, default=25)
+    p.add_argument("--fps", type=int, default=15)
+    p.add_argument("--clip_time", type=int, default=10)
+    p.add_argument("--batch_clips", type=int, default=8)
+    p.add_argument("--no-warp", action="store_true", help="plain (unwarped) TV-L1")
+    p.add_argument("--ext", default="mp4")
+    p.add_argument("--modelname", default="UCF101_split{split}",
+                   help="per-split model dir name template")
+    p.add_argument("--new_width", type=int, default=0, help="decode resize width")
+    p.add_argument("--new_height", type=int, default=0, help="decode resize height")
+    p.add_argument("--flow_res_div", type=int, default=2,
+                   help="compute flow at frame_res/div")
+    p.add_argument("--workers", type=int, default=1,
+                   help="decode worker processes (only 1 is ported)")
+    args = p.parse_args(argv)
+    if args.workers != 1:
+        raise SystemExit("--workers > 1 (multi-process decode) is not ported yet")
+
+    cfg = ExtractionConfig(fps=args.fps, clip_seconds=args.clip_time,
+                           num_ticks=args.num_ticks, batch_clips=args.batch_clips,
+                           flow_res_div=args.flow_res_div)
+    if args.src == "synthetic":
+        os.makedirs(args.out, exist_ok=True)
+        path = os.path.join(args.out, "_synthetic.mp4")
+        decode.synthesize_video(path, n_frames=320)
+        videos = [path]
+    elif os.path.isdir(args.src):
+        videos = sorted(glob.glob(os.path.join(args.src, f"*.{args.ext}")))
+        if not videos:
+            raise SystemExit(f"no *.{args.ext} videos in {args.src!r}")
+    elif os.path.isfile(args.src):
+        videos = [args.src]
+    else:
+        raise SystemExit(f"input not found: {args.src!r}")
+    new_size = None
+    if args.new_width or args.new_height:
+        if not (args.new_width and args.new_height):
+            raise SystemExit("--new_width and --new_height must be set together")
+        new_size = (args.new_width, args.new_height)
+
+    device = resolve_device()
+    if args.weights:
+        tsn = TwoStreamTSN.from_npz_dir(args.weights, tuple(args.splits), device)
+    else:
+        log.warning("no --weights: using random-initialized TSN (pipeline demo)")
+        tsn = TwoStreamTSN.random(args.seed, tuple(args.splits), device)
+    ex = Extractor(tsn, cfg, warped=not args.no_warp, device=device)
+    for vid in videos:
+        name = os.path.splitext(os.path.basename(vid))[0]
+        t0 = time.time()
+        frames = decode.load_video(vid, new_size=new_size or ex._decode_size())
+        sigs = gather_signatures(list(ex.extract_frames(frames)))
+        if not sigs:
+            log.warning("%s: too short for any clip (%d frames); skipped",
+                        name, len(frames))
+            continue
+        n_clips = sum(len(s.clip_numbers) for s in sigs)
+        dt = time.time() - t0
+        ex.write_csv_tree(sigs, args.out, name, vid, modelname_fmt=args.modelname)
+        print(f"{name}: {n_clips} clips in {dt:.1f}s ({n_clips / dt:.2f} clips/s)")
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()
