@@ -6,8 +6,9 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    K1, K2 and K3 (kernels/csrc/{query_kernel,tvl1_level,window_warp}.cu)
-            compiled by nvcc for sm_90a, one process each, all at once.
+2. build    K1, K2, K3, T1 and T2 (kernels/csrc/{query_kernel,tvl1_level,
+            window_warp,inception_block,roll}.cu) compiled by nvcc for sm_90a,
+            one process each, all at once.
 3. k1       K1 against its plain PyTorch version on the card at Q=16, S=2,
             K=3, D=1024, N=65,536+77 (ragged edge), ~25% mask holes: f32 and
             bf16 index, both epilogues, both target modes; rtol 1e-5 /
@@ -38,7 +39,29 @@ Phases, each printing its own lines; any failure exits non-zero:
             One clip's 125 quantised flow pairs from the card equal the
             plain versions' on the CPU in >= 99.9% of bytes, never more than
             1 apart. p50 of an 8-clip batch, and its flow with the kernels
-            and with the plain versions.
+            and with the plain versions. The CLI again with --dtype bfloat16:
+            the loader ingests its CSVs, and its signatures, and those of an
+            8-clip batch in bf16 (timed too), are within the JAX package's
+            bf16 criterion of the f32 ones (mean |diff| / mean |f32| < 0.1,
+            tests/test_nn.py). torch.profiler traces of the rgb stream's 3
+            nets on 200 ticks (f32, bf16) and of one bf16 batch: device busy
+            time, idle share, the top kernels.
+9. t1       T1 (fused stride-1 Inception block) against its plain version
+            at all 8 stride-1 block shapes, 3 members x 4 images: f32 within
+            rtol 1e-4 / atol 1e-5 (only the order of sums differs); bf16 with
+            >= 99% of outputs within one bf16 ulp and max |diff| <= 1/64 of
+            the largest output. Then the A/B tool
+            (videoquery_torch.tools.inception_block_bench) at 3 x 200 images
+            in bf16: T1 and the port's unfused cuDNN block, ms per block and
+            in total.
+10. t2      the roll repro tool (videoquery_torch.tools.roll_repro): T2 with
+            the shift read from device memory, 12 cases, each equal to
+            torch.roll.
+
+Beside each kernel's time the kernels line gives its bound on an H100 SXM
+(the larger of its compulsory bytes over 3.35 TB/s and its operations over
+989 TFLOP/s bf16 tensor-core or 67 TFLOP/s f32 peak) and, where one exists,
+the time of a PyTorch library call for the same work.
 
 The second-to-last line is a JSON object describing each kernel; the last
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -66,6 +89,13 @@ K2_SOURCE = "videoquery_torch/kernels/csrc/tvl1_level.cu"
 K2_REPLACES = "videoquery/kernels/tvl1_pallas.py:59"
 K3_SOURCE = "videoquery_torch/kernels/csrc/window_warp.cu"
 K3_REPLACES = "videoquery/kernels/tvl1_pallas.py:263"
+T1_SOURCE = "videoquery_torch/kernels/csrc/inception_block.cu"
+T1_REPLACES = "tools/inception_pallas.py:66"
+T2_SOURCE = "videoquery_torch/kernels/csrc/roll.cu"
+T2_REPLACES = "tools/mosaic_roll_repro.py:26"
+PEAK_BYTES = 3.35e12                        # H100 SXM HBM3, bytes/s
+PEAK_BF16, PEAK_F32 = 989e12, 67e12         # tensor-core bf16; f32 without
+BF16_SHARE, BF16_REL = 0.99, 1 / 64         # T1's bf16 criterion (see phase 9)
 FLOW_ATOL_PX = 1e-3  # K2 vs plain: same operations in the same order
 RTOL, ATOL = 1e-5, 1e-6  # tests/test_pallas.py: only the order of sums differs
 STREAMS = ("rgb", "warped_optical_flow")
@@ -96,6 +126,11 @@ def ptxas_summary(build_log: str) -> list[str]:
                 kind = "bf16" if "bfloat16" in k1.group(1) else "f32"
                 epi = "scores" if k1.group(3) == "1" else "avg+counts"
                 name = f"query_kernel<{kind}, {k1.group(2)} queries/thread, {epi}>"
+            elif "inception_conv_kernel" in m.group(1):
+                t1 = re.search(r"kernelI(\w+?)Li(\d)E", m.group(1))
+                kind = "bf16" if "bfloat16" in t1.group(1) else "f32"
+                mode = ("1x1", "3x3", "ave pool + 1x1", "max pool + 1x1")[int(t1.group(2))]
+                name = f"inception_conv_kernel<{kind}, {mode}>"
             else:  # "..._cu_<hash>9pd_kernelE...": the identifier after a length
                 found = re.findall(r"\d([a-z]+(?:_[a-z]+)*_kernel)E", m.group(1))
                 name = found[-1] if found else m.group(1)
@@ -203,7 +238,7 @@ def run_fixture_lifecycle(device, exact: bool, report_dir: str, root: str = FIXT
     """new -> revise -> finalize over a feature-CSV tree (the fixtures by
     default); returns the states after each round, the matched clip ids of
     each round and the API."""
-    from videoquery.testing.fake_api import FakeAPI, FakeClient
+    from videoquery_torch.testing.fake_api import FakeAPI, FakeClient
     from videoquery_torch.core.config import HyperParams
     from videoquery_torch.service.compute_matches import compute_matches
     from videoquery_torch.service.loader import DBLoader
@@ -379,15 +414,35 @@ def phase_query(dev, n_segments=1_000_000, q=16, k=20, repeats=10) -> dict:
         feats, mask, targets, tmask, weights), k), repeats)
     kern2 = p50_ms(lambda: k1.fused_query_topk(feats, mask, targets, tmask, weights, k=k),
                    repeats)
+    # the library yardstick: one bf16 torch.matmul of the same products
+    # (no mask, no per-stream average, no score, no top-k)
+    fk = feats.reshape(6, n_segments, d)
+    tk = targets.to(torch.bfloat16).permute(1, 2, 3, 0).reshape(6, d, q).contiguous()
+    lib = p50_ms(lambda: torch.matmul(fk, tk), repeats)
     log(f"[scale] {q} queries x {n_segments} bf16 segments ({gb:.1f} GB index), "
         f"top-{k}: K1 p50 {kern:.3f} ms (again {kern2:.3f} ms), plain p50 "
-        f"{plain:.3f} ms; top-k values agree, ids agree {same_ids:.3f}")
+        f"{plain:.3f} ms, torch.matmul of the bf16 products p50 {lib:.3f} ms; "
+        f"top-k values agree, ids agree {same_ids:.3f}")
     log(f"[scale] K1 effective index read rate: {gb / (kern / 1e3):.0f} GB/s")
-    del feats
-    return {"query_ms": kern, "query_plain_ms": plain, "err": errs[0]}
+    # compulsory bytes: index, mask, targets and weights read once, the
+    # top-k written once; operations: one multiply-add per index value and query
+    nbytes = (feats.numel() * 2 + mask.numel() + targets.numel() * 4 + weights.numel() * 4
+              + q * k * 12)
+    flops = 2.0 * q * feats.numel()
+    del feats, fk
+    return {"query_ms": kern, "query_plain_ms": plain, "err": errs[0], "library_ms": lib,
+            **bound(nbytes, flops, PEAK_BF16)}
 
 
 # -- phase 6 ------------------------------------------------------------------
+
+def bound(nbytes: float, flops: float, peak_flops: float) -> dict:
+    """The least time the card could take: the larger of the compulsory
+    bytes over the memory rate and the operations over the peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
 
 def cuda_ms(fn, repeats: int = 10) -> float:
     """Mean device time of fn() in ms over `repeats` launches (CUDA events),
@@ -403,6 +458,45 @@ def cuda_ms(fn, repeats: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def trace(fn, top: int = 8) -> dict:
+    """One torch.profiler trace of fn(): traced wall ms (host clock around a
+    synchronised call), device busy ms (the union of kernel intervals), the
+    idle share, and the `top` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        if e.time_range.end > end:
+            busy += e.time_range.end - max(e.time_range.start, end)
+            end = e.time_range.end
+    by_name: dict[str, tuple[float, int]] = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / 1e3 / wall if kernels else None,
+            "top": [(name[:90], ms, n) for name, (ms, n) in ranked]}
+
+
+def log_trace(tag: str, what: str, tr: dict) -> None:
+    idle = "not measured" if tr["idle_share"] is None else f"{tr['idle_share']:.3f}"
+    log(f"[{tag}] trace of {what}: traced wall {tr['wall_ms']:.1f} ms, device busy "
+        f"{tr['busy_ms']:.1f} ms, idle share {idle}")
+    for name, ms, n in tr["top"]:
+        log(f"[{tag}]   {ms:8.2f} ms in {n:4d} launches: {name}")
 
 
 def smooth_frames(n: int, h: int, w: int, dev, seed: int):
@@ -438,6 +532,25 @@ def phase_k3(dev) -> dict:
                 times["ms"] = cuda_ms(lambda: k3.window_warp(img, u, v, 4, True))
                 times["plain_ms"] = cuda_ms(
                     lambda: k3.window_warp_reference(img, u, v, 4, True))
+                # img, u, v read once, out written once; ~48 f32 operations a
+                # pixel (clamps, floors, 4 triangle weights, 3 two-tap lerps)
+                times.update(bound(4.0 * img.numel() * 4, 48.0 * img.numel(), PEAK_F32))
+            if (h, w) == (128, 128) and not sep:
+                # the library call for full mode: bilinear F.grid_sample with
+                # edge-clamped borders on the clamped flow's sample grid
+                gy, gx = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                                        indexing="ij")
+                grid = torch.stack([(gx + u.clamp(-4, 4)) * (2.0 / (w - 1)) - 1,
+                                    (gy + v.clamp(-4, 4)) * (2.0 / (h - 1)) - 1], dim=-1)
+                sample = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+                    img[:, None], grid, mode="bilinear", padding_mode="border",
+                    align_corners=True)
+                lib_err = float((sample()[:, 0] - got).abs().max())
+                times["full_ms"] = cuda_ms(lambda: k3.window_warp(img, u, v, 4, False))
+                times["full_library_ms"] = cuda_ms(sample)
+                log(f"[k3] full mode, 400 x 128x128: K3 {times['full_ms']:.4f} ms, "
+                    f"F.grid_sample {times['full_library_ms']:.4f} ms (max |diff| "
+                    f"{lib_err:.2e}: another weight expression)")
         log(f"[k3] {n} x {h}x{w}, d=4, separable and full: agree with the plain "
             f"version (max abs err {max(errs):.3e})")
     log(f"[k3] 400 x 128x128 separable: K3 {times['ms']:.4f} ms, plain "
@@ -484,8 +597,17 @@ def phase_k2(dev) -> dict:
             f"iters): max |flow diff| {err:.3e} px; K2 {ms:.3f} ms, plain {plain:.3f} ms; "
             f"mean |u| {float(u.abs().mean()):.3f} px")
     ms, plain = times[(128, 6)]
+    # 400 pairs at 128x128 (the padded domain too), 2 warps x 10 iterations:
+    # I0, I1, u, v read once, u, v written once; per padded pixel ~50 f32
+    # operations per warp (clamps, two 2-tap passes, gradients, rho_c,
+    # rgrad) and ~52 per primal-dual iteration (tvl1_level_reference's
+    # arithmetic)
+    pl = p.at_level(0)
+    px = 400 * 128 * 128
+    flops = px * pl.n_warps * (50.0 + 52.0 * pl.n_iters)
     return {"err": err_max, "ms": ms, "plain_ms": plain,
-            "levels": {f"{s}px_d{d}": t for (s, d), t in times.items()}}
+            "levels": {f"{s}px_d{d}": t for (s, d), t in times.items()},
+            **bound(6.0 * px * 4, flops, PEAK_F32)}
 
 
 # -- phase 8 ------------------------------------------------------------------
@@ -515,16 +637,26 @@ def write_synthetic_video(path: str, n_frames: int, seed: int = 0) -> None:
     writer.release()
 
 
+def bf16_criterion(got, want) -> float:
+    """The JAX package's bf16-vs-f32 measure (tests/test_nn.py):
+    mean |got - want| / mean |want|."""
+    import numpy as np
+
+    return float(np.abs(got - want).mean() / (np.abs(want).mean() + 1e-9))
+
+
 def phase_extract(dev, tmp: str) -> dict:
     """Video -> CSV tree -> broker round on the card (the extraction path)."""
     import numpy as np
     import torch
 
-    from videoquery.pipeline import decode
+    from videoquery_torch.index.csvio import read_features_csv
     from videoquery_torch.kernels import query as k1, tvl1_flow
     from videoquery_torch.kernels import tvl1_level as k2, window_warp as k3
     from videoquery_torch.nn.tsn import TwoStreamTSN
-    from videoquery_torch.pipeline import extract
+    from videoquery_torch.pipeline import decode, extract
+    from videoquery_torch.service.loader import DBLoader
+    from videoquery_torch.testing.fake_api import FakeAPI, FakeClient
 
     video = os.path.join(tmp, "synthetic_pan_zoom.mp4")
     out = os.path.join(tmp, "features")
@@ -553,6 +685,24 @@ def phase_extract(dev, tmp: str) -> dict:
     for name, n in launches.items():
         assert n > 0, f"the extraction path never launched {name}"
 
+    # the CLI in bf16: the loader ingests its CSVs; its signatures meet the
+    # JAX package's bf16-vs-f32 criterion against the f32 run's
+    out16 = os.path.join(tmp, "features_bf16")
+    t0 = time.perf_counter()
+    extract.main([video, "--out", out16, "--seed", "0", "--dtype", "bfloat16"])
+    t_cli16 = time.perf_counter() - t0
+    n16 = DBLoader(FakeClient(FakeAPI())).load_tree(out16)
+    assert n16 == n_rows, (n16, n_rows)
+    worst = 0.0
+    for root, _dirs, files in os.walk(out):
+        for f in files:
+            a = read_features_csv(os.path.join(root, f)).features
+            b = read_features_csv(os.path.join(out16, os.path.relpath(root, out), f)).features
+            worst = max(worst, bf16_criterion(b, a))
+    log(f"[extract] CLI --dtype bfloat16: {t_cli16:.1f} s; loader ingested {n16} rows; "
+        f"worst CSV mean |bf16 - f32| / mean |f32| {worst:.4f} (< 0.1)")
+    assert worst < 0.1, worst
+
     # timings of one 8-clip batch, and one clip against the CPU
     tsn = TwoStreamTSN.random(0, (1, 2, 3), dev)
     ex = extract.Extractor(tsn, device=dev)
@@ -561,10 +711,15 @@ def phase_extract(dev, tmp: str) -> dict:
                                        for i in range(8)])).to(dev)
     plan = ex._plan(150)
 
-    def step():
-        return extract.extract_step(tsn, batch, plan, ex.cfg, True, ex.tvl1)
+    def step(dtype="float32"):
+        return extract.extract_step(tsn, batch, plan, ex.cfg, True, ex.tvl1, dtype)
 
     step_ms = p50_ms(step, 3, warmup=1)
+    step16_ms = p50_ms(lambda: step("bfloat16"), 3, warmup=1)
+    sig32, sig16 = step(), step("bfloat16")
+    crit16 = max(bf16_criterion(b.cpu().numpy(), a.cpu().numpy())
+                 for a, b in zip(sig32, sig16))
+    assert all(torch.isfinite(x).all() for x in sig16) and crit16 < 0.1, crit16
     gray, vscale = extract._flow_gray_grid(batch, ex.cfg.flow_res_div)
 
     def flow(g_):
@@ -594,8 +749,115 @@ def phase_extract(dev, tmp: str) -> dict:
     log(f"[extract] 8-clip batch (1,000 flow pairs, 1,200 BN-Inception forwards): "
         f"p50 {step_ms:.1f} ms ({8e3 / step_ms:.2f} clips/s); its flow: kernels "
         f"p50 {flow_ms:.1f} ms, plain versions p50 {flow_plain_ms:.1f} ms")
+    log(f"[extract] the same batch with bf16 networks: p50 {step16_ms:.1f} ms "
+        f"({8e3 / step16_ms:.2f} clips/s); signatures mean |bf16 - f32| / mean |f32| "
+        f"{crit16:.4f} (< 0.1)")
+    # where the time goes: the networks alone (1,200 forwards), f32 and bf16
+    rgb_in = torch.randn((200, 224, 224, 3), device=dev) * 50
+    for dtype in ("float32", "bfloat16"):
+        x = rgb_in.to(extract.DTYPES[dtype])
+        with torch.no_grad():
+            log_trace("extract", f"the rgb stream's 3 nets on 200 ticks, {dtype}",
+                      trace(lambda: tsn.rgb.embed(x)))
+    log_trace("extract", "one 8-clip batch with bf16 networks", trace(lambda: step("bfloat16")))
     return {"launches": launches, "step_ms": step_ms, "flow_ms": flow_ms,
-            "flow_plain_ms": flow_plain_ms, "same": same}
+            "flow_plain_ms": flow_plain_ms, "same": same, "step_bf16_ms": step16_ms,
+            "bf16_criterion": max(crit16, worst)}
+
+
+# -- phase 9 ------------------------------------------------------------------
+
+def bf16_agreement(got, want) -> tuple[float, float]:
+    """(share of outputs within one bf16 ulp of each other, max |diff| over
+    the largest |value|): T1's bf16 criterion."""
+    import torch
+
+    got, want = got.float(), want.float()
+    top = torch.maximum(got.abs(), want.abs())
+    ulp = torch.where(top > 0, torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-30))) - 7),
+                      torch.zeros_like(top))
+    diff = (got - want).abs()
+    return float((diff <= ulp).float().mean()), float(diff.max() / want.abs().max())
+
+
+def phase_t1(dev) -> dict:
+    """T1 vs its plain version at the 8 stride-1 shapes, then the A/B tool
+    at 3 x 200 bf16 images (the path whose launches count)."""
+    import torch
+
+    from videoquery_torch.kernels import inception_block as t1
+    from videoquery_torch.nn.bn_inception import init_params
+    from videoquery_torch.tools import inception_block_bench as bench
+
+    base = init_params(0, 3)
+    g = torch.Generator(device=dev).manual_seed(9)
+    errs: list[float] = []
+    share_min, rel_max = 1.0, 0.0
+    for name in bench.stride1_blocks():
+        hw, cin, spec = bench.block_geometry()[name]
+        for dt in (torch.float32, torch.bfloat16):
+            x, wts = bench.block_case(name, 4, 3, dt, dev, g, base)
+            got = t1.fused_inception(wts, name, spec, x)
+            want = t1.fused_inception_reference(wts, name, spec, x)
+            assert got.shape == want.shape == (3, 4, hw, hw, want.shape[-1])
+            if dt == torch.float32:
+                err = float((got - want).abs().max())
+                errs.append(err)
+                if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+                    raise AssertionError(f"T1 {name} f32: max abs err {err:.3e} beyond "
+                                         "rtol 1e-4 atol 1e-5")
+            else:
+                share, rel = bf16_agreement(got, want)
+                share_min, rel_max = min(share_min, share), max(rel_max, rel)
+                if share < BF16_SHARE or rel > BF16_REL:
+                    raise AssertionError(f"T1 {name} bf16: {share:.5f} of outputs within "
+                                         f"one ulp, max rel err {rel:.2e}")
+        log(f"[t1] {name} ({hw}x{hw}, cin {cin}), 3 members x 4 images: f32 and bf16 "
+            f"agree with the plain version")
+    torch.cuda.synchronize()
+    log(f"[t1] f32 max abs err {max(errs):.3e} (rtol 1e-4, atol 1e-5); bf16: worst share "
+        f"within one ulp {share_min:.5f} (>= {BF16_SHARE}), worst max |diff| / max "
+        f"|value| {rel_max:.2e} (<= {BF16_REL:.4f})")
+
+    t1.LAUNCHES = 0
+    rows = bench.run(images=200, splits=3, dtype="bfloat16", reps=10, device=dev,
+                     log=lambda m: log(f"[t1] {m}"))
+    launches = t1.LAUNCHES
+    assert launches > 0, "the A/B never launched T1"
+    for r in rows:
+        assert r["rel_diff"] < 1e-2, (r["block"], r["rel_diff"])
+    tot = {k: sum(r[k] for r in rows) for k in ("t1_ms", "cudnn_ms", "plain_ms", "bound_ms")}
+    return {"launches": launches, "err": max(errs), "bf16_share": share_min,
+            "bf16_rel": rel_max, "ms": tot["t1_ms"], "plain_ms": tot["plain_ms"],
+            "library_ms": tot["cudnn_ms"], "bound_ms": tot["bound_ms"],
+            "blocks": {r["block"]: {k: r[k] for k in ("t1_ms", "cudnn_ms", "plain_ms",
+                                                      "bound_ms")} for r in rows}}
+
+
+# -- phase 10 -----------------------------------------------------------------
+
+def phase_t2(dev) -> dict:
+    """The roll repro tool on the card (the path whose launches count),
+    then T2's time on its tile."""
+    import torch
+
+    from videoquery_torch.kernels import roll as t2
+    from videoquery_torch.tools import roll_repro
+
+    t2.LAUNCHES = 0
+    errs = roll_repro.run(dev, log=lambda m: log(f"[t2] {m}"))
+    launches = t2.LAUNCHES
+    assert launches == 12 and errs == [0.0] * 12, (launches, errs)
+    x = torch.rand((1, roll_repro.H, roll_repro.W), device=dev)
+    shift = torch.tensor([-5], dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: t2.roll(x, shift, 0), 100)
+    plain = cuda_ms(lambda: t2.roll_reference(x, shift, 0), 100)
+    lib = cuda_ms(lambda: torch.roll(x, -5, 1), 100)
+    log(f"[t2] 12 cases equal torch.roll; [1, 80, 256] f32, axis 0: T2 {ms:.4f} ms, "
+        f"plain (reads the shift on the host) {plain:.4f} ms, torch.roll {lib:.4f} ms "
+        f"(CUDA events, mean of 100)")
+    return {"launches": launches, "err": max(errs), "ms": ms, "plain_ms": plain,
+            "library_ms": lib, **bound(2.0 * x.numel() * 4, 0.0, PEAK_F32)}
 
 
 def main() -> int:
@@ -619,14 +881,15 @@ def main() -> int:
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    from videoquery_torch.kernels import _build, query as k1
-    from videoquery_torch.kernels import tvl1_level as k2, window_warp as k3
+    from videoquery_torch.kernels import _build, inception_block as t1, query as k1
+    from videoquery_torch.kernels import roll as t2, tvl1_level as k2, window_warp as k3
 
-    sources = ("query_kernel.cu", "tvl1_level.cu", "window_warp.cu")
+    sources = ("query_kernel.cu", "tvl1_level.cu", "window_warp.cu", "inception_block.cu",
+               "roll.cu")
     t0 = time.perf_counter()
     _build.build(sources)
-    k1._library(), k2._library(), k3._library()
-    log(f"[build] K1, K2, K3 ready in {time.perf_counter() - t0:.1f} s "
+    k1._library(), k2._library(), k3._library(), t1._library(), t2._library()
+    log(f"[build] K1, K2, K3, T1, T2 ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source)")
     for src in sources:
         for line in ptxas_summary(_build.BUILD_LOG.get(src, "")):
@@ -640,6 +903,8 @@ def main() -> int:
     level = phase_k2(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ext = phase_extract(dev, tmp)
+    block = phase_t1(dev)
+    rollp = phase_t2(dev)
 
     log(card_line())  # the card and its power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
@@ -648,6 +913,9 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(max_err, rounds["err"], query["err"]),
         "ms": query["query_ms"], "plain_ms": query["query_plain_ms"],
+        "bound_ms": query["bound_ms"], "bound_by": query["bound_by"],
+        "library_ms": query["library_ms"],
+        "library_call": "torch.matmul of the same bf16 products (no mask, score or top-k)",
         "shape": "16 queries x 1M segments bf16, top-20",
         "round_ms_100k_q8": rounds["round_ms"],
         "avg_counts_ms_100k_q8": rounds["sim_ms"],
@@ -658,6 +926,7 @@ def main() -> int:
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
         "launches": ext["launches"]["K2"], "max_abs_err": level["err"],
         "ms": level["ms"], "plain_ms": level["plain_ms"],
+        "bound_ms": level["bound_ms"], "bound_by": level["bound_by"], "library_ms": None,
         "shape": "400 pairs 128x128, d=6, 2 warps x 10 iters, warped+separable",
         "levels_ms_plain_ms": level["levels"],
         "batch_flow_ms": ext["flow_ms"], "batch_flow_plain_ms": ext["flow_plain_ms"],
@@ -667,7 +936,31 @@ def main() -> int:
         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
         "launches": ext["launches"]["K3"], "max_abs_err": warp["err"],
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
+        "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"], "library_ms": None,
         "shape": "400 x 128x128, d=4, separable",
+        "full_mode_ms": warp["full_ms"], "full_mode_library_ms": warp["full_library_ms"],
+        "full_mode_library_call": "F.grid_sample, bilinear, border padding",
+    }, {
+        "name": "T1 fused stride-1 Inception block (5 implicit-GEMM launches per call)",
+        "route": "cuda", "source": T1_SOURCE, "replaces": T1_REPLACES,
+        "launches": block["launches"], "max_abs_err": block["err"],
+        "ms": block["ms"], "plain_ms": block["plain_ms"],
+        "bound_ms": block["bound_ms"], "bound_by": "operations",
+        "library_ms": block["library_ms"],
+        "library_call": "the port's unfused block: a chain of cuDNN convs, pools and a concat",
+        "shape": "the 8 stride-1 blocks, 3 members x 200 images bf16, summed",
+        "blocks_ms": block["blocks"], "bf16_share_within_1ulp": block["bf16_share"],
+        "bf16_max_rel_err": block["bf16_rel"],
+        "extract_batch_bf16_ms": ext["step_bf16_ms"],
+        "extract_bf16_criterion": ext["bf16_criterion"],
+    }, {
+        "name": "T2 roll by a shift read from device memory",
+        "route": "cuda", "source": T2_SOURCE, "replaces": T2_REPLACES,
+        "launches": rollp["launches"], "max_abs_err": rollp["err"],
+        "ms": rollp["ms"], "plain_ms": rollp["plain_ms"],
+        "bound_ms": rollp["bound_ms"], "bound_by": rollp["bound_by"],
+        "library_ms": rollp["library_ms"], "library_call": "torch.roll with a host shift",
+        "shape": "[1, 80, 256] f32, axis 0, shift -5",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import REFERENCE_FIXTURES
 from test_batch_serving import snapshot
@@ -31,6 +32,10 @@ from videoquery_torch.core.config import (STATE_FINALIZED, STATE_PROCESSED,
 from videoquery_torch.service.broker import Broker
 from videoquery_torch.service.loader import DBLoader
 from videoquery_torch.service.repository import APIRepository
+
+# tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
+# from starving the timing tests that share the machine
+torch.set_num_threads(2)
 
 cm = importlib.import_module("videoquery_torch.service.compute_matches")
 

@@ -14,6 +14,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from videoquery.index.store import FeatureIndex as JaxIndex
 from videoquery.index.store import FeatureRecord as JaxRecord
@@ -26,6 +27,10 @@ from videoquery_torch.search.engine import (SearchEngine, optimize_many,
 from videoquery_torch.search.selection import (finalize_near_miss,
                                                lowest_scoring_user_match,
                                                select_clips_to_review)
+
+# tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
+# from starving the timing tests that share the machine
+torch.set_num_threads(2)
 
 STREAMS = ("rgb", "warped_optical_flow")
 N_CLIPS, DIM = 160, 24

@@ -11,9 +11,15 @@ Tolerances:
 - rgb embeddings: rtol 1e-4 / atol 1e-5 (BN-Inception in f32);
 - flow embeddings: rtol 1e-4 / atol 1e-5, held also when a few quantized
   bytes differ by one LSB (measured here: 2 of 110,592 bytes differ and the
-  flow embeddings are at most 2.2e-7 apart).
+  flow embeddings are at most 2.2e-7 apart);
+- with bf16 networks (dtype="bfloat16" in both packages): mean |port - JAX|
+  / mean |JAX| < 2% for each stream (the two round the same values at the
+  same places but sum in another order; see test_torch_nn.py), and against
+  the port's f32 signatures the JAX package's own criterion, < 10%.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -38,6 +44,13 @@ from videoquery_torch.pipeline import extract as te
 from videoquery_torch.service.compute_matches import compute_matches
 from videoquery_torch.service.loader import DBLoader
 from videoquery_torch.service.repository import APIRepository
+from videoquery_torch.testing.fake_api import FakeAPI as PortFakeAPI
+from videoquery_torch.testing.fake_api import FakeClient as PortFakeClient
+
+# tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
+# from starving the timing tests that share the machine
+torch.set_num_threads(2)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(fps=5, clip_seconds=2, num_ticks=3, frame_resize=(96, 64), crop_size=64,
@@ -66,7 +79,7 @@ def both(tmp_path_factory):
     jtsn = JaxTSN.random(jax.random.PRNGKey(0), splits=(1,))
     unstack = lambda st: {1: jax.tree.map(lambda a: np.asarray(a[0]), st)}  # noqa: E731
     ptsn = TwoStreamTSN.from_jax_params(unstack(jtsn.rgb.stacked_params),
-                                        unstack(jtsn.flow.stacked_params))
+                                        unstack(jtsn.flow.stacked_params), device="cpu")
     jex = je.Extractor(jtsn, JaxExtractionConfig(**CFG), warped=True,
                        flow_impl="pallas")
     with pltpu.force_tpu_interpret_mode():
@@ -74,6 +87,36 @@ def both(tmp_path_factory):
     pex = te.Extractor(ptsn, ExtractionConfig(**CFG), warped=True, device="cpu")
     psigs = te.gather_signatures(list(pex.extract_frames(frames)))
     return frames, jex, jsigs, pex, psigs
+
+
+@pytest.fixture(scope="module")
+def both_bf16(both):
+    """(JAX signatures, port signatures) of the same frames with bf16
+    networks, same weights as `both`."""
+    frames, jex, _jsigs, pex, _psigs = both
+    jex16 = je.Extractor(jex.tsn, JaxExtractionConfig(**CFG), warped=True,
+                         flow_impl="pallas", dtype="bfloat16")
+    with pltpu.force_tpu_interpret_mode():
+        jsigs = je.gather_signatures(list(jex16.extract_frames(frames)))
+    pex16 = te.Extractor(pex.tsn, ExtractionConfig(**CFG), warped=True, device="cpu",
+                         dtype="bfloat16")
+    return jsigs, te.gather_signatures(list(pex16.extract_frames(frames)))
+
+
+def mean_rel(got, want) -> float:
+    return float(np.abs(got - want).mean() / np.abs(want).mean())
+
+
+def test_bf16_signatures_match_jax_bf16(both, both_bf16):
+    _frames, _jex, _jsigs, _pex, psigs32 = both
+    jsigs, psigs = both_bf16
+    assert [s.clip_numbers for s in psigs] == [s.clip_numbers for s in jsigs]
+    for js, ps, p32 in zip(jsigs, psigs, psigs32):
+        for attr in ("rgb", "flow"):
+            got = getattr(ps, attr)
+            assert got.dtype == np.float32 and got.shape == getattr(p32, attr).shape
+            assert mean_rel(got, np.asarray(getattr(js, attr), np.float32)) < 0.02
+            assert mean_rel(got, getattr(p32, attr)) < 0.1
 
 
 def quantized_flow_both(frames, jex, pex, group):
@@ -155,7 +198,7 @@ def test_cli_writes_csv_tree_on_cpu(tmp_path, monkeypatch):
     """python -m videoquery_torch.pipeline.extract on a short clip, on the
     CPU (VIDEOQUERY_DEVICE=cpu), production geometry (340x256 -> 128x128
     flow grid, 224 crops), one split."""
-    from videoquery.pipeline import decode
+    from videoquery_torch.pipeline import decode
 
     video = str(tmp_path / "clip.mp4")
     decode.synthesize_video(video, n_frames=20, size=(160, 120))
@@ -171,27 +214,83 @@ def test_cli_writes_csv_tree_on_cpu(tmp_path, monkeypatch):
     assert np.isfinite(csv.features).all()
 
 
+def test_cli_bf16_csvs_ingest_and_meet_the_bf16_criterion(tmp_path, monkeypatch):
+    """python -m videoquery_torch.pipeline.extract synthetic --dtype bfloat16
+    (small geometry, on the CPU): the port's loader ingests the CSV tree, and
+    each file's vectors are within the JAX package's bf16 criterion of an
+    f32 run's."""
+    monkeypatch.setenv("VIDEOQUERY_DEVICE", "cpu")
+    args = ["--splits", "1", "--num_ticks", "3", "--fps", "5", "--clip_time", "20",
+            "--batch_clips", "2", "--new_width", "160", "--new_height", "120"]
+    te.main(["synthetic", "--out", str(tmp_path / "f32"), *args])
+    te.main(["synthetic", "--out", str(tmp_path / "bf16"), *args, "--dtype", "bfloat16"])
+    paths = sorted(glob.glob(str(tmp_path / "bf16" / "_synthetic" / "*" / "*.csv")))
+    assert len(paths) == 2
+    for path in paths:
+        got = read_features_csv(path)
+        want = read_features_csv(path.replace(str(tmp_path / "bf16"), str(tmp_path / "f32")))
+        np.testing.assert_array_equal(got.clip_numbers, want.clip_numbers)
+        assert np.isfinite(got.features).all()
+        assert mean_rel(got.features, want.features) < 0.1
+    api = PortFakeAPI()
+    n_rows = DBLoader(PortFakeClient(api)).load_tree(str(tmp_path / "bf16"))
+    assert n_rows == len(read_features_csv(paths[0]).clip_numbers) * 2
+    with pytest.raises(SystemExit):
+        te.main(["synthetic", "--out", str(tmp_path / "x"), "--dtype", "float16"])
+
+
 def test_extractor_refuses_what_is_not_ported():
-    tsn = TwoStreamTSN.random(0, splits=(1,))
+    tsn = TwoStreamTSN.random(0, splits=(1,), device="cpu")
     with pytest.raises(ValueError):
         te.Extractor(tsn, ExtractionConfig(host_gray=True), device="cpu")
     with pytest.raises(ValueError):
         te.Extractor(tsn, ExtractionConfig(feature_blob="fc-action"), device="cpu")
     with pytest.raises(SystemExit):
         te.main(["synthetic", "--out", "unused", "--workers", "2"])
+    with pytest.raises(ValueError):
+        te.Extractor(tsn, ExtractionConfig(), device="cpu", dtype="float16")
 
 
 def test_extraction_imports_without_jax():
-    code = ("import sys\n"
-            "import videoquery_torch.pipeline.extract, videoquery_torch.nn.tsn\n"
-            "import videoquery_torch.kernels.tvl1_flow\n"
-            "shared = {'videoquery.pipeline', 'videoquery.pipeline.decode',\n"
-            "          'videoquery.pipeline.sampling'}\n"
+    """Importing every module of the port loads neither jax nor any module
+    of the JAX package (videoquery.*) nor the repository's tools/."""
+    code = ("import sys, pkgutil, importlib, videoquery_torch\n"
+            "for m in pkgutil.walk_packages(videoquery_torch.__path__, 'videoquery_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-            "       or (m.startswith('videoquery.') and m not in shared)]\n"
+            "       or m == 'videoquery' or m.startswith('videoquery.')\n"
+            "       or m == 'tools' or m.startswith('tools.')]\n"
             "assert not bad, bad\n"
+            "assert 'videoquery_torch.tools.inception_block_bench' in sys.modules\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and "ok" in r.stdout, r.stdout + r.stderr
+
+
+def imported_modules(path: str) -> set[str]:
+    """Every module a Python file imports, at any depth of its code."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            out.add(node.module)
+    return out
+
+
+@pytest.mark.parametrize("where", ["chip_smoke.py", "videoquery_torch"])
+def test_port_sources_import_nothing_of_the_jax_package(where):
+    """No import statement in chip_smoke.py or any module of the port names
+    jax, the JAX package (videoquery.*) or the repository's tools/."""
+    root = os.path.join(REPO, where)
+    files = ([root] if root.endswith(".py")
+             else glob.glob(os.path.join(root, "**", "*.py"), recursive=True))
+    assert files
+    for path in files:
+        for mod in imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "videoquery", "tools"), (path, mod)

@@ -33,6 +33,10 @@ from videoquery_torch.kernels.resize import linear_matrix, resize2
 from videoquery_torch.kernels.tvl1 import TVL1Params, _pyramid_shapes
 from videoquery_torch.pipeline import extract as te
 
+# tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
+# from starving the timing tests that share the machine
+torch.set_num_threads(2)
+
 
 def port_params(jp) -> TVL1Params:
     return TVL1Params(**{f.name: getattr(jp, f.name) for f in dataclasses.fields(jp)})

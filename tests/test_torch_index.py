@@ -16,6 +16,10 @@ from videoquery_torch.index.records import FeatureRecord
 from videoquery_torch.index.store import FeatureIndex
 from videoquery_torch.service.loader import load_index
 
+# tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
+# from starving the timing tests that share the machine
+torch.set_num_threads(2)
+
 STREAMS = ("rgb", "warped_optical_flow")
 
 

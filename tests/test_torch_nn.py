@@ -5,6 +5,14 @@ The same random weights (the JAX package's init_params, carried across with
 from_jax_params) and the same numpy inputs go through both, in float32.
 Tolerance rtol 1e-4 / atol 1e-5: 69 convolutions whose sums run in another
 order. Small inputs (64 px) keep the CPU time to seconds.
+
+In bfloat16 (activations and weights in bf16, f32 sums) the two packages
+round the same values at the same places but sum in another order, so a
+bf16 activation may land one ulp apart and the difference carries through
+69 convs: measured here, mean |port - JAX| / mean |JAX| ~0.5% for
+global_pool and fc-action, about what bf16 is from f32. Held at 2% against
+the JAX package in bf16 and at the JAX package's own criterion (< 10%,
+tests/test_nn.py) against f32.
 """
 
 import math
@@ -20,7 +28,13 @@ from videoquery.nn import tsn as jtsn
 from videoquery_torch.nn import bn_inception as tb
 from videoquery_torch.nn.tsn import StreamEnsemble, TwoStreamTSN, load_npz
 
+# tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
+# from starving the timing tests that share the machine
+torch.set_num_threads(2)
+
 RTOL, ATOL = 1e-4, 1e-5
+BF16_VS_JAX, BF16_VS_F32 = 0.02, 0.1
+
 
 
 def split_trees(stacked, k):
@@ -85,7 +99,8 @@ def test_ensemble_and_clip_signature_match_jax(jax_tsn):
     """from_jax_params carries both streams' per-split weights across; the
     [K, B, 1024] ensemble embedding and the tick average match."""
     port = TwoStreamTSN.from_jax_params(split_trees(jax_tsn.rgb.stacked_params, 2),
-                                        split_trees(jax_tsn.flow.stacked_params, 2))
+                                        split_trees(jax_tsn.flow.stacked_params, 2),
+                                        device="cpu")
     assert port.rgb.splits == (1, 2) and port.flow.in_channels == 10
     rng = np.random.default_rng(3)
     rgb = rng.normal(size=(1, 2, 64, 64, 3)).astype(np.float32) * 30
@@ -107,15 +122,67 @@ def test_npz_bundles_load_without_jax(tmp_path):
     tree = load_npz(str(tmp_path / "rgb_split1.npz"))
     np.testing.assert_array_equal(tree["conv1/7x7_s2"]["w"],
                                   np.asarray(jb.init_params(7, 3)["conv1/7x7_s2"]["w"]))
-    port = TwoStreamTSN.from_npz_dir(str(tmp_path), splits=(1,))
-    ref = StreamEnsemble.from_jax_params({1: jb.init_params(7, 10)}, 10)
+    port = TwoStreamTSN.from_npz_dir(str(tmp_path), splits=(1,), device="cpu")
+    ref = StreamEnsemble.from_jax_params({1: jb.init_params(7, 10)}, 10, device="cpu")
     x = torch.from_numpy(np.random.default_rng(4).normal(size=(1, 64, 64, 10)).astype(np.float32))
     torch.testing.assert_close(port.flow.embed(x), ref.embed(x), rtol=0, atol=0)
 
 
+def mean_rel(got, want) -> float:
+    return float(np.abs(got - want).mean() / np.abs(want).mean())
+
+
+@pytest.mark.parametrize("cin", [3, 10])
+def test_bn_inception_bf16_matches_jax_bf16(cin):
+    """global_pool and fc-action (f32) of the net run in bf16, against the
+    JAX package's forward in bf16 and against the port's own f32 run."""
+    params = jb.init_params(1, cin)
+    x = np.random.default_rng(cin).normal(size=(2, 64, 64, cin)).astype(np.float32) * 30
+    want = jb.forward(jax.tree.map(jnp.asarray, params), jnp.asarray(x, jnp.bfloat16))
+    net = tb.BNInception(params)
+    got = net(torch.from_numpy(x).to(torch.bfloat16))
+    got32 = net(torch.from_numpy(x))
+    for key in ("global_pool", "fc-action"):
+        assert got[key].dtype == torch.float32
+        assert mean_rel(got[key].numpy(), np.asarray(want[key], np.float32)) < BF16_VS_JAX
+        assert mean_rel(got[key].numpy(), got32[key].numpy()) < BF16_VS_F32
+
+
+def test_bf16_weights_are_cast_once():
+    """The bf16 copies of the weights are made at the first bf16 forward
+    and reused; the f32 path uses the parameters themselves."""
+    net = tb.BNInception(jb.init_params(2, 3))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 32, 32, 3)).astype(np.float32))
+    net(x)
+    assert net._cast == {}
+    net(x.to(torch.bfloat16))
+    cast = net._cast[(torch.bfloat16, torch.device("cpu"))]
+    w = cast["conv1__7x7_s2"]
+    assert w.dtype == torch.bfloat16
+    net(x.to(torch.bfloat16))
+    assert net._cast[(torch.bfloat16, torch.device("cpu"))]["conv1__7x7_s2"] is w
+
+
+def test_tsn_constructors_default_to_the_card(monkeypatch):
+    """Without a device the constructors build on resolve_device(): CUDA
+    (here, with no card, that raises) unless VIDEOQUERY_DEVICE names the CPU."""
+    monkeypatch.delenv("VIDEOQUERY_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {1: jb.init_params(3, 3)}
+    for build in (lambda: TwoStreamTSN.random(3, splits=(1,)),
+                  lambda: StreamEnsemble.random(3, 3, splits=(1,)),
+                  lambda: StreamEnsemble.from_jax_params(tree, 3),
+                  lambda: TwoStreamTSN.from_jax_params(tree, {1: jb.init_params(4, 10)})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    monkeypatch.setenv("VIDEOQUERY_DEVICE", "cpu")
+    tsn = TwoStreamTSN.random(3, splits=(1,))
+    assert tsn.rgb.nets[0].fc_w.device.type == "cpu"
+
+
 def test_random_tsn_is_seeded():
-    a = TwoStreamTSN.random(3, splits=(1,))
-    b = TwoStreamTSN.random(3, splits=(1,))
-    c = TwoStreamTSN.random(4, splits=(1,))
+    a = TwoStreamTSN.random(3, splits=(1,), device="cpu")
+    b = TwoStreamTSN.random(3, splits=(1,), device="cpu")
+    c = TwoStreamTSN.random(4, splits=(1,), device="cpu")
     wa, wb, wc = (t.rgb.nets[0].weights["conv1__7x7_s2"] for t in (a, b, c))
     assert torch.equal(wa, wb) and not torch.equal(wa, wc)

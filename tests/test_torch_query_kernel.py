@@ -25,6 +25,10 @@ from videoquery_torch.search.scoring import (
     ensemble_similarities_batched as port_batched,
 )
 
+# tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
+# from starving the timing tests that share the machine
+torch.set_num_threads(2)
+
 S, K, N, D, Q = 2, 3, 256, 128, 4
 RTOL, ATOL = 1e-5, 1e-6
 DTYPES = {"f32": (jnp.float32, torch.float32),

@@ -34,6 +34,10 @@ from videoquery_torch.kernels import tvl1_level as k2
 from videoquery_torch.kernels.tvl1 import TVL1Params
 from videoquery_torch.kernels.window_warp import PaddedGeometry
 
+# tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
+# from starving the timing tests that share the machine
+torch.set_num_threads(2)
+
 RTOL, ATOL = 1e-4, 1e-5
 MODES = {
     "warped_separable": dict(grad_source="warped", separable_warp=True),

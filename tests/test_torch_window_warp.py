@@ -22,6 +22,10 @@ from videoquery.kernels.tvl1_pallas import window_warp_pallas
 from videoquery.kernels.warp import bilinear_warp
 from videoquery_torch.kernels import window_warp as k3
 
+# tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
+# from starving the timing tests that share the machine
+torch.set_num_threads(2)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

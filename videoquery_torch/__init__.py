@@ -7,14 +7,21 @@ similarity pass and the fused query scores run on a hand-written CUDA
 kernel (``kernels/csrc/query_kernel.cu``), the TV-L1 flow on two more (one
 pyramid level, ``kernels/csrc/tvl1_level.cu``; the window warp,
 ``kernels/csrc/window_warp.cu``); everything else is host code or plain
-PyTorch. The JAX package ``videoquery`` is the reference this package is
-tested against; this package never imports its jax modules, only the
-jax-free fake API (in tests and smoke runs) and ``pipeline.decode`` and
-``pipeline.sampling``.
+PyTorch. The two kernels of the JAX package's tools have their
+counterparts too: the fused Inception block
+(``kernels/csrc/inception_block.cu``, driven by
+``python -m videoquery_torch.tools.inception_block_bench``) and the
+dynamic-shift roll (``kernels/csrc/roll.cu``,
+``python -m videoquery_torch.tools.roll_repro``). The JAX package
+``videoquery`` is the reference this package is tested against; this
+package imports nothing of it and keeps its own copies of the jax-free
+modules it needs (``pipeline/sampling.py``, ``pipeline/decode.py``,
+``testing/fake_api.py``).
 
 Subpackages mirror ``videoquery``: ``core``, ``index``, ``kernels``, ``nn``,
-``pipeline``, ``search``, ``service``. Their ``__init__`` files import
-nothing, so any module can be imported alone.
+``pipeline``, ``search``, ``service``, ``testing``, and ``tools`` for the
+two tool kernels. Their ``__init__`` files import nothing, so any module can
+be imported alone.
 """
 
 __version__ = "0.1.0"

@@ -8,8 +8,16 @@ explicit bottom/right padding (-inf for max, 0 for average) and average
 pooling over a constant k*k (PyTorch's own ``ceil_mode=True`` shrinks the
 divisor of an overhanging window instead). ``conv1`` is a plain 7x7/s2 conv
 (the JAX package's space-to-depth stem is a TPU workaround with the same
-maths). Inputs are NHWC at the public functions, as in the JAX package, and
-the net runs in float32 (the JAX package's bfloat16 option is not ported).
+maths). Inputs are NHWC at the public functions, as in the JAX package.
+
+The net runs in the dtype of its input, float32 or bfloat16, as the JAX
+``apply`` does: each conv reads activations and weights in that type and
+accumulates in float32 (cuDNN's bf16 convolution), the float32 bias is
+added, then ReLU, then the result is cast back. cuDNN hands a bf16 conv's
+sum back rounded to bf16 before the bias is added, so with a non-zero bias
+a bf16 output may be rounded twice where the JAX package rounds once.
+Average pooling works in the activation type; ``global_pool`` is a float32
+mean. Weights are cast to a working type once, at its first use.
 """
 
 from __future__ import annotations
@@ -114,9 +122,10 @@ def avg_pool(x: torch.Tensor, k: int, s: int, pad: int = 0) -> torch.Tensor:
 
 
 class BNInception(nn.Module):
-    """BN-folded BN-Inception. ``forward`` takes NHWC, as the JAX package's
-    ``apply`` does, and returns {'global_pool': [B, 1024]} and, with the
-    head, 'fc-action' [B, num_classes]."""
+    """BN-folded BN-Inception. ``forward`` takes NHWC float32 or bfloat16,
+    as the JAX package's ``apply`` does, runs in that type and returns
+    float32 {'global_pool': [B, 1024]} and, with the head, 'fc-action'
+    [B, num_classes]."""
 
     def __init__(self, params: dict[str, dict[str, np.ndarray]]):
         super().__init__()
@@ -137,12 +146,28 @@ class BNInception(nn.Module):
             np.asarray(params["fc-action"]["w"], np.float32).copy()), requires_grad=False)
         self.fc_b = nn.Parameter(torch.from_numpy(
             np.asarray(params["fc-action"]["b"], np.float32).copy()), requires_grad=False)
+        # conv weights cast to a working type other than float32, by
+        # (dtype, device); filled at the first forward in that type
+        self._cast: dict[tuple, dict[str, torch.Tensor]] = {}
+
+    def _weight(self, key: str, dtype: torch.dtype) -> torch.Tensor:
+        w = self.weights[key]
+        if dtype == w.dtype:
+            return w
+        cast = self._cast.get((dtype, w.device))
+        if cast is None:
+            cast = self._cast[(dtype, w.device)] = {
+                k: v.detach().to(dtype) for k, v in self.weights.items()}
+        return cast[key]
 
     def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
         k, pad, s = self.specs[name]
         key = name.replace("/", "__")
-        y = F.conv2d(x, self.weights[key], self.biases[key], stride=s, padding=pad)
-        return F.relu(y, inplace=True)
+        w, b = self._weight(key, x.dtype), self.biases[key]
+        if x.dtype == torch.float32:
+            return F.relu(F.conv2d(x, w, b, stride=s, padding=pad), inplace=True)
+        y = F.conv2d(x, w, stride=s, padding=pad)      # f32 sums, cast
+        return y.float().add_(b[:, None, None]).relu_().to(x.dtype)
 
     def _inception(self, name: str, b: dict, x: torch.Tensor) -> torch.Tensor:
         branches = []
@@ -171,12 +196,13 @@ class BNInception(nn.Module):
         y = max_pool(y, 3, 2, 0)
         for name, b in INCEPTION_BLOCKS:
             y = self._inception(name, b, y)
-        gp = y.mean(dim=(2, 3))                     # global_pool [B, 1024]
+        gp = y.float().mean(dim=(2, 3))             # global_pool [B, 1024], f32
         out = {"global_pool": gp}
         if head:
             out["fc-action"] = gp @ self.fc_w + self.fc_b
         return out
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
-        """The 1024-d embedding (the `global_pool` blob) of NHWC input."""
+        """The 1024-d float32 embedding (the `global_pool` blob) of NHWC
+        input."""
         return self.forward(x, head=False)["global_pool"]

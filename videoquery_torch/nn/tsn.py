@@ -7,7 +7,9 @@ one ``BNInception`` per split and runs them in turn on the same batch.
 
 Weights cross from the JAX package with ``from_jax_params`` (per-split
 pytrees of numpy arrays, HWIO convs) or from ``convert_caffe`` npz bundles
-with ``from_npz_dir``, read with numpy alone.
+with ``from_npz_dir``, read with numpy alone. Every constructor builds on
+``resolve_device(device)``: the card unless the caller (or
+``VIDEOQUERY_DEVICE``) names the CPU.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from videoquery_torch.core.device import resolve_device
 from videoquery_torch.nn.bn_inception import (FLOW_CHANNELS, RGB_CHANNELS,
                                               BNInception, init_params)
 
@@ -44,10 +47,11 @@ class StreamEnsemble:
 
     @staticmethod
     def from_jax_params(split_params: Mapping[int, Mapping], in_channels: int,
-                        device="cpu") -> "StreamEnsemble":
+                        device=None) -> "StreamEnsemble":
         """Per-split parameter trees in the JAX package's layout ({layer:
         {'w': HWIO, 'b'}} of numpy or JAX arrays) -> the port's modules
-        (OIHW)."""
+        (OIHW) on ``resolve_device(device)``."""
+        device = resolve_device(device)
         splits = tuple(sorted(split_params))
         nets = []
         for s in splits:
@@ -58,7 +62,7 @@ class StreamEnsemble:
 
     @staticmethod
     def random(seed: int, in_channels: int, splits=(1, 2, 3),
-               device="cpu") -> "StreamEnsemble":
+               device=None) -> "StreamEnsemble":
         """Random weights; split s of the stream is init_params(seed + s)."""
         return StreamEnsemble.from_jax_params(
             {s: init_params(seed + s, in_channels) for s in splits},
@@ -78,7 +82,7 @@ class TwoStreamTSN:
     flow: StreamEnsemble
 
     @staticmethod
-    def random(seed: int = 0, splits=(1, 2, 3), device="cpu") -> "TwoStreamTSN":
+    def random(seed: int = 0, splits=(1, 2, 3), device=None) -> "TwoStreamTSN":
         """Seeded random weights (rgb split s: seed + s; flow split s:
         seed + 100 + s)."""
         return TwoStreamTSN(
@@ -87,14 +91,14 @@ class TwoStreamTSN:
 
     @staticmethod
     def from_jax_params(rgb: Mapping[int, Mapping], flow: Mapping[int, Mapping],
-                        device="cpu") -> "TwoStreamTSN":
+                        device=None) -> "TwoStreamTSN":
         return TwoStreamTSN(
             StreamEnsemble.from_jax_params(rgb, RGB_CHANNELS, device),
             StreamEnsemble.from_jax_params(flow, FLOW_CHANNELS, device))
 
     @staticmethod
     def from_npz_dir(weights_dir: str, splits=(1, 2, 3),
-                     device="cpu") -> "TwoStreamTSN":
+                     device=None) -> "TwoStreamTSN":
         """convert_caffe bundles <dir>/{rgb,flow}_split<s>.npz."""
         return TwoStreamTSN.from_jax_params(
             {s: load_npz(os.path.join(weights_dir, f"rgb_split{s}.npz")) for s in splits},

@@ -8,8 +8,9 @@ Port of ``videoquery/pipeline/extract.py``'s pair path (the JAX package's
          K2 levels; keyframe pairs solve the pyramid, warm pairs refine
          their key's flow; clamp-saturated pairs are re-solved wider)
       -> quantized flow stacks [B, T, fh, fw, 10] and rgb ticks
-      -> preprocess -> 2 streams x K splits of BN-Inception
-      -> {stream: [K, B, 1024]} signatures (ticks averaged)
+      -> preprocess -> 2 streams x K splits of BN-Inception (float32 or
+         bfloat16 activations, f32 accumulation: ``dtype``)
+      -> {stream: [K, B, 1024]} f32 signatures (ticks averaged)
 
 and reference-format CSVs from them (calcSig_wOF.py:116-134). The device is
 explicit: CUDA unless the caller (or ``VIDEOQUERY_DEVICE``) names the CPU,
@@ -20,7 +21,7 @@ Not ported yet: the host-gray/crop/YUV compact uploads, streaming decode,
 multi-process decode, warm-start advection, the all-frames clip-flow path
 and mesh sharding.
 
-    python -m videoquery_torch.pipeline.extract synthetic --out feats/
+    python -m videoquery_torch.pipeline.extract synthetic --out feats/ [--dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -34,8 +35,6 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from videoquery.pipeline import decode
-from videoquery.pipeline.sampling import flow_pair_plan, flow_warm_plan, frame_ticks
 from videoquery_torch.core.config import FLOW, RGB, ExtractionConfig
 from videoquery_torch.core.device import resolve_device
 from videoquery_torch.index.csvio import write_features_csv
@@ -47,11 +46,14 @@ from videoquery_torch.kernels.tvl1_flow import (tvl1_flow, tvl1_flow_warm,
                                                 tvl1_warped_flow_cam,
                                                 tvl1_warped_flow_warm)
 from videoquery_torch.nn.tsn import TwoStreamTSN
+from videoquery_torch.pipeline import decode
 from videoquery_torch.pipeline.payload import (build_payload, flow_grid_shape,
                                                plan_groups)
 from videoquery_torch.pipeline.preprocess import (preprocess_flow,
                                                   preprocess_rgb,
                                                   quantize_flow)
+from videoquery_torch.pipeline.sampling import (flow_pair_plan, flow_warm_plan,
+                                                frame_ticks)
 
 log = logging.getLogger(__name__)
 
@@ -231,11 +233,16 @@ class StepPlan:
     warm: tuple | None           # (key_pos, warm_pos, warm_src) or None
 
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 @torch.no_grad()
 def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
-                 cfg: ExtractionConfig, warped: bool, tvl1: TVL1Params):
-    """One batch: frames u8 [B, F, H, W, 3] BGR -> (rgb, flow) embeddings,
-    each [K, B, 1024]."""
+                 cfg: ExtractionConfig, warped: bool, tvl1: TVL1Params,
+                 dtype: str = "float32"):
+    """One batch: frames u8 [B, F, H, W, 3] BGR -> (rgb, flow) f32
+    embeddings, each [K, B, 1024]. ``dtype`` ("float32" or "bfloat16") is
+    the networks' working type; the flow is f32 either way."""
     gray, vscale = _flow_gray_grid(frames_u8, cfg.flow_res_div,
                                    cfg.flow_gray_matmul)
     flow_q = _pair_flow(gray, plan.pair_idx, cfg.flow_bound, warped, tvl1,
@@ -247,8 +254,9 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
     stacks = flow_q[:, plan.stack_pos.reshape(-1)].reshape(b, t, d, h, w, 2)
     # interleave x/y per depth -> channels [x1, y1, ..., xD, yD]
     stacks = stacks.permute(0, 1, 3, 4, 2, 5).reshape(b, t, h, w, d * 2)
-    rgb_in = preprocess_rgb(rgb_ticks, cfg.frame_resize, cfg.crop_size)
-    flow_in = preprocess_flow(stacks, cfg.frame_resize, cfg.crop_size)
+    dt = DTYPES[dtype]
+    rgb_in = preprocess_rgb(rgb_ticks, cfg.frame_resize, cfg.crop_size, dtype=dt)
+    flow_in = preprocess_flow(stacks, cfg.frame_resize, cfg.crop_size, dtype=dt)
     rgb_emb = tsn.rgb.embed(rgb_in.reshape((b * t,) + rgb_in.shape[2:]))
     flow_emb = tsn.flow.embed(flow_in.reshape((b * t,) + flow_in.shape[2:]))
     k = rgb_emb.shape[0]
@@ -291,9 +299,13 @@ class Extractor:
     """Two-stream signature extractor on one device."""
 
     def __init__(self, tsn: TwoStreamTSN, cfg: ExtractionConfig | None = None,
-                 warped: bool = True, tvl1: TVL1Params | None = None, device=None):
+                 warped: bool = True, tvl1: TVL1Params | None = None, device=None,
+                 dtype: str = "float32"):
         self.cfg = cfg or ExtractionConfig()
         self.tvl1 = tvl1 or PRODUCTION_TVL1
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}; got {dtype!r}")
+        self.dtype = dtype
         if self.cfg.host_gray:
             raise ValueError("the compact host_gray upload is not ported yet")
         if self.cfg.feature_blob != "global_pool":
@@ -342,7 +354,7 @@ class Extractor:
             payload = build_payload(frames, group, nums, self.cfg)
             frames_dev = torch.from_numpy(payload.clip_rgb).to(self.device)
             rgb, flow = extract_step(self.tsn, frames_dev, self._plan(payload.f_len),
-                                     self.cfg, self.warped, self.tvl1)
+                                     self.cfg, self.warped, self.tvl1, self.dtype)
             yield ClipSignatures(payload.nums, rgb, flow, self.tsn.rgb.splits)
 
     def _decode_size(self) -> tuple[int, int] | None:
@@ -421,6 +433,8 @@ def main(argv=None) -> None:
                    help="compute flow at frame_res/div")
     p.add_argument("--workers", type=int, default=1,
                    help="decode worker processes (only 1 is ported)")
+    p.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
+                   help="the networks' working type (f32 accumulation either way)")
     args = p.parse_args(argv)
     if args.workers != 1:
         raise SystemExit("--workers > 1 (multi-process decode) is not ported yet")
@@ -453,7 +467,8 @@ def main(argv=None) -> None:
     else:
         log.warning("no --weights: using random-initialized TSN (pipeline demo)")
         tsn = TwoStreamTSN.random(args.seed, tuple(args.splits), device)
-    ex = Extractor(tsn, cfg, warped=not args.no_warp, device=device)
+    ex = Extractor(tsn, cfg, warped=not args.no_warp, device=device,
+                   dtype=args.dtype)
     for vid in videos:
         name = os.path.splitext(os.path.basename(vid))[0]
         t0 = time.time()

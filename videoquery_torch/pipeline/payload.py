@@ -11,8 +11,8 @@ import dataclasses
 
 import numpy as np
 
-from videoquery.pipeline.sampling import clip_ranges
 from videoquery_torch.core.config import ExtractionConfig
+from videoquery_torch.pipeline.sampling import clip_ranges
 
 
 def flow_grid_shape(h0: int, w0: int, flow_res_div: int) -> tuple[int, int]:

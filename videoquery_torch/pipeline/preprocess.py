@@ -4,7 +4,8 @@ Port of ``videoquery/pipeline/preprocess.py``: cv2-exact bilinear resize
 (``_cv2_linear_matrix``, copied: half-pixel sources, edge-clamped, no
 antialiasing) fused with the crop as two matmuls, mean subtraction, and
 dense_flow's 8-bit flow quantization. Crops are the center crop (``"tl"``
-is the reference's literal first crop).
+is the reference's literal first crop). The net inputs are computed in f32
+and cast to the net's working type (``dtype``), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -66,17 +67,22 @@ def _resize_crop(x: torch.Tensor, w: int, h: int, size: int,
 
 
 def preprocess_rgb(frames: torch.Tensor, resize_wh: tuple[int, int] = (340, 256),
-                   crop_size: int = 224, crop: str = "center") -> torch.Tensor:
-    """BGR frames [..., H, W, 3] -> mean-subtracted f32 crops for the rgb net."""
+                   crop_size: int = 224, crop: str = "center",
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """BGR frames [..., H, W, 3] -> mean-subtracted crops for the rgb net,
+    computed in f32 and cast to ``dtype`` (the net's working type)."""
     x = _resize_crop(frames, resize_wh[0], resize_wh[1], crop_size, crop)
-    return x - torch.tensor(BGR_MEAN, dtype=torch.float32, device=x.device)
+    x = x - torch.tensor(BGR_MEAN, dtype=torch.float32, device=x.device)
+    return x.to(dtype)
 
 
 def preprocess_flow(stacks: torch.Tensor, resize_wh: tuple[int, int] = (340, 256),
-                    crop_size: int = 224, crop: str = "center") -> torch.Tensor:
-    """Quantized flow stacks [..., H, W, 10] (128 = no motion) -> f32 net input."""
+                    crop_size: int = 224, crop: str = "center",
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Quantized flow stacks [..., H, W, 10] (128 = no motion) -> net input,
+    computed in f32 and cast to ``dtype``."""
     x = _resize_crop(stacks, resize_wh[0], resize_wh[1], crop_size, crop)
-    return x - FLOW_MEAN
+    return (x - FLOW_MEAN).to(dtype)
 
 
 def quantize_flow(flow: torch.Tensor, bound: float = 20.0) -> torch.Tensor:
