@@ -14,7 +14,8 @@ Phases, each printing its own lines; any failure exits non-zero:
             bf16 index, both epilogues, both target modes; rtol 1e-5 /
             atol 1e-6, counts and top-k ids equal; query 0 alone bitwise
             equal to query 0 inside launches of Q = 2, 3, 8, 16 (and 70,
-            which the wrapper splits).
+            which the wrapper splits); then D = 72 and 100 at N = 1003, Q = 5
+            (a part-filled last k-step, the unvectorised staging).
 4. broker   the broker round on the fixture CSVs: DBLoader into an
             in-process FakeAPI, then new -> revise -> finalize through
             compute_matches on the card (seed 42), held against the port's
@@ -22,7 +23,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 5. scale    (a) 8 concurrent revise rounds over a 100,000-segment f32 search
             set (resident banded path), p50 of 5; (b) 16 queries x 1,000,000
             segments bf16 through fused_query_topk(k=20), p50 of 10, kernel
-            and plain version.
+            and plain version; (c) the avg+counts pass with 8 f32 targets
+            over the same index, p50 of 10, checked on 65,536 clips.
 6. k3       K3 (window warp) against its plain version on the card: 400 pairs
             at the camera grid 48x64 and the flow grid 128x128 (d=4) and at a
             64-wide grid, separable and full, rough random flow beyond the
@@ -56,7 +58,8 @@ Phases, each printing its own lines; any failure exits non-zero:
             in total.
 10. t2      the roll repro tool (videoquery_torch.tools.roll_repro): T2 with
             the shift read from device memory, 12 cases, each equal to
-            torch.roll.
+            torch.roll; T2 and torch.roll over 100 back-to-back calls, and
+            the host cost of each piece of a T2 call.
 
 Beside each kernel's time the kernels line gives its bound on an H100 SXM
 (the larger of its compulsory bytes over 3.35 TB/s and its operations over
@@ -114,18 +117,23 @@ def card_line() -> str:
 
 def ptxas_summary(build_log: str) -> list[str]:
     """One line per compiled kernel instance: registers and spills, from
-    nvcc -Xptxas -v (query_kernel<index type, queries per thread, scores>)."""
+    nvcc -Xptxas -v (K1: query_kernel<queries per thread, scores> for an f32
+    index, query_mma_kernel<n-tiles, target terms, scores> for a bf16 one)."""
     import re
 
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']*)'", line)
         if m:
-            k1 = re.search(r"query_kernelI(\w+?)Li(\d+)ELb(\d)E", m.group(1))
+            k1 = re.search(r"query_kernelILi(\d+)ELb(\d)E", m.group(1))
+            k1m = re.search(r"query_mma_kernelILi(\d+)ELi(\d)ELb(\d)E", m.group(1))
             if k1:
-                kind = "bf16" if "bfloat16" in k1.group(1) else "f32"
-                epi = "scores" if k1.group(3) == "1" else "avg+counts"
-                name = f"query_kernel<{kind}, {k1.group(2)} queries/thread, {epi}>"
+                epi = "scores" if k1.group(2) == "1" else "avg+counts"
+                name = f"query_kernel<f32, {k1.group(1)} queries/thread, {epi}>"
+            elif k1m:
+                epi = "scores" if k1m.group(3) == "1" else "avg+counts"
+                name = (f"query_mma_kernel<bf16, {k1m.group(1)} n-tiles of 8 queries, "
+                        f"{k1m.group(2)} target terms, {epi}>")
             elif "inception_conv_kernel" in m.group(1):
                 t1 = re.search(r"kernelI(\w+?)Li(\d)E", m.group(1))
                 kind = "bf16" if "bfloat16" in t1.group(1) else "f32"
@@ -226,6 +234,28 @@ def phase_k1(dev) -> float:
                     assert torch.equal(a_b[64], alone_avg[0]), f"chunked Q=70 ({tag})"
             log(f"[k1] {tag}: avg/counts, scores and top-20 ids agree; "
                 f"query 0 bitwise equal alone and in Q=2,3,8,16,70")
+    # depths off the 64-deep slices: D = 72 ends in a part-filled 16-deep
+    # step, D = 100 takes the element-by-element staging (D % 8 != 0)
+    for dd in (72, 100):
+        f32 = torch.randn((s, k, 1003, dd), generator=g, device=dev) / 10.0
+        m = mask[:, :, :1003].contiguous()
+        t = torch.randn((5, s, k, dd), generator=g, device=dev) / 10.0
+        for fdt, tdt in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                         (torch.bfloat16, torch.bfloat16)):
+            f = f32.to(fdt)
+            for w in (None, weights[:5]):
+                got = k1.query_k1(f, m, t, tmask[:5], w, target_dtype=tdt)
+                want = k1.query_k1_reference(f, m, t, tmask[:5], w, target_dtype=tdt)
+                one = k1.query_k1(f, m, t[:1], tmask[:1], None if w is None else w[:1],
+                                  target_dtype=tdt)
+                if w is None:
+                    assert torch.equal(got[1], want[1]), f"counts differ (D={dd})"
+                    got, want, one = got[0], want[0], one[0]
+                check_close(f"D={dd} feats {str(fdt)[6:]} targets {str(tdt)[6:]}",
+                            got, want, errs)
+                assert torch.equal(one[0], got[0]), f"Q=1 != Q=5 (D={dd})"
+    log("[k1] D = 72 and 100, N = 1003, Q = 5: all index and target types agree, "
+        "query 0 bitwise equal alone")
     torch.cuda.synchronize()
     log(f"[k1] max abs err vs plain version: {max(errs):.3e} "
         f"(rtol {RTOL}, atol {ATOL})")
@@ -386,10 +416,12 @@ def phase_rounds(dev, n_segments=100_000, q=8, n_reviewed=20, repeats=5) -> dict
 
 
 def phase_query(dev, n_segments=1_000_000, q=16, k=20, repeats=10) -> dict:
-    """16 queries over 1M bf16 segments through fused_query_topk."""
+    """16 queries over 1M bf16 segments through fused_query_topk; then the
+    engine's avg+counts pass (f32 targets) at Q=8 over the same index."""
     import torch
 
     from videoquery_torch.kernels import query as k1
+    from videoquery_torch.search.scoring import ensemble_similarities_batched
 
     d = 1024
     g = torch.Generator(device=dev).manual_seed(2)
@@ -419,19 +451,54 @@ def phase_query(dev, n_segments=1_000_000, q=16, k=20, repeats=10) -> dict:
     fk = feats.reshape(6, n_segments, d)
     tk = targets.to(torch.bfloat16).permute(1, 2, 3, 0).reshape(6, d, q).contiguous()
     lib = p50_ms(lambda: torch.matmul(fk, tk), repeats)
+    # the same split in device time (CUDA events): the scores pass alone,
+    # the top-k after it, and the library call
+    scores = k1.fused_query_scores(feats, mask, targets, tmask, weights)
+    split = {"scores_ms": cuda_ms(lambda: k1.fused_query_scores(
+                 feats, mask, targets, tmask, weights)),
+             "topk_ms": cuda_ms(lambda: torch.topk(scores, k)),
+             "library_events_ms": cuda_ms(lambda: torch.matmul(fk, tk))}
+    del scores
     log(f"[scale] {q} queries x {n_segments} bf16 segments ({gb:.1f} GB index), "
         f"top-{k}: K1 p50 {kern:.3f} ms (again {kern2:.3f} ms), plain p50 "
         f"{plain:.3f} ms, torch.matmul of the bf16 products p50 {lib:.3f} ms; "
         f"top-k values agree, ids agree {same_ids:.3f}")
     log(f"[scale] K1 effective index read rate: {gb / (kern / 1e3):.0f} GB/s")
+    log(f"[scale] CUDA events, mean of 10: K1 scores pass {split['scores_ms']:.3f} ms "
+        f"({gb / (split['scores_ms'] / 1e3):.0f} GB/s), torch.topk after it "
+        f"{split['topk_ms']:.3f} ms, torch.matmul of the bf16 products "
+        f"{split['library_events_ms']:.3f} ms")
     # compulsory bytes: index, mask, targets and weights read once, the
     # top-k written once; operations: one multiply-add per index value and query
     nbytes = (feats.numel() * 2 + mask.numel() + targets.numel() * 4 + weights.numel() * 4
               + q * k * 12)
     flops = 2.0 * q * feats.numel()
-    del feats, fk
-    return {"query_ms": kern, "query_plain_ms": plain, "err": errs[0], "library_ms": lib,
-            **bound(nbytes, flops, PEAK_BF16)}
+    del fk
+
+    # the busy broker's similarity pass: K1's avg+counts epilogue with f32
+    # targets (three bf16 terms a target) at Q=8 over the same index, held
+    # against the plain version on the first 65,536 clips
+    q8, ns = 8, 65_536
+    t8, tm8 = targets[:q8].contiguous(), tmask[:q8].contiguous()
+    avg, cnt = ensemble_similarities_batched(t8, tm8, feats, mask)
+    avg_r, cnt_r = k1.ensemble_similarities_batched_reference(
+        t8, tm8, feats[:, :, :ns].contiguous(), mask[:, :, :ns].contiguous())
+    assert avg.shape == (q8, 2, n_segments) and torch.isfinite(avg).all()
+    assert torch.equal(cnt[:, :, :ns], cnt_r), "counts differ at 8 x 1M bf16"
+    check_close("avg at 8 x 1M bf16, f32 targets", avg[:, :, :ns], avg_r, errs)
+    del avg, cnt, avg_r, cnt_r
+    sim8 = p50_ms(lambda: ensemble_similarities_batched(t8, tm8, feats, mask), repeats)
+    # index, mask, targets and tmask read once, avg and counts written once;
+    # one f32 multiply-add per index value and query
+    sim8_bound = bound(feats.numel() * 2 + mask.numel() + t8.numel() * 4 + tm8.numel()
+                       + q8 * 2 * n_segments * 8, 2.0 * q8 * feats.numel(), PEAK_F32)
+    log(f"[scale] avg+counts, {q8} f32 targets x {n_segments} bf16 segments: K1 p50 "
+        f"{sim8:.3f} ms (bound {sim8_bound['bound_ms']:.3f} ms, "
+        f"{sim8_bound['bound_by']}); agrees with the plain version on {ns} clips")
+    del feats
+    return {"query_ms": kern, "query_plain_ms": plain, "err": max(errs), "library_ms": lib,
+            "avg_counts_ms_1m_bf16_q8": sim8, "avg_counts_bound_ms_1m_bf16_q8":
+            sim8_bound["bound_ms"], **split, **bound(nbytes, flops, PEAK_BF16)}
 
 
 # -- phase 6 ------------------------------------------------------------------
@@ -836,9 +903,66 @@ def phase_t1(dev) -> dict:
 
 # -- phase 10 -----------------------------------------------------------------
 
+def host_us(fn, reps: int = 2000) -> float:
+    """Mean host time of fn() in microseconds (no synchronisation: what the
+    calling thread spends), after a warm-up."""
+    for _ in range(50):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def t2_host_costs(x, shift) -> dict:
+    """The host cost of each piece of a T2 call on the card, in us: the
+    pieces of the lean launch path (kernels/_launch.py), the rest of the
+    wrapper (its checks and Python) as what the whole call leaves, and two
+    pieces the path dropped (a torch.cuda.device context, a
+    torch.cuda.Stream object)."""
+    import torch
+
+    from videoquery_torch.kernels import roll as t2
+
+    idx = x.get_device()
+    entry = t2._ENTRY
+    fn = entry.load()
+    out = torch.empty_like(x)
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    ptrs = (x.data_ptr(), shift.data_ptr(), out.data_ptr())
+    block = entry.pack(*ptrs, *x.shape, 0, stream)
+    empty = entry.pack(*ptrs, 0, *x.shape[1:], 0, stream)  # n = 0: returns before launching
+    costs = {
+        "roll_call": host_us(lambda: t2.roll(x, shift, 0)),
+        "torch_roll_call": host_us(lambda: torch.roll(x, -5, 1)),
+        "empty_like": host_us(lambda: torch.empty_like(x)),
+        "data_ptrs": host_us(lambda: (x.data_ptr(), shift.data_ptr(), out.data_ptr())),
+        "current_device": host_us(torch._C._cuda_getDevice),
+        "raw_stream": host_us(lambda: torch._C._cuda_getCurrentRawStream(idx)),
+        "pack": host_us(lambda: entry.pack(*ptrs, *x.shape, 0, stream)),
+        "ctypes_call": host_us(lambda: fn(empty)),
+        "ctypes_call_and_launch": host_us(lambda: fn(block)),
+        "was_device_context": host_us(lambda: _enter_exit(x.device)),
+        "was_stream_object": host_us(lambda: torch.cuda.current_stream(x.device).cuda_stream),
+    }
+    torch.cuda.synchronize()
+    costs["cuda_launch"] = costs["ctypes_call_and_launch"] - costs["ctypes_call"]
+    costs["checks_and_rest"] = costs["roll_call"] - sum(
+        costs[k] for k in ("empty_like", "data_ptrs", "current_device", "raw_stream", "pack",
+                           "ctypes_call_and_launch"))
+    return costs
+
+
+def _enter_exit(device) -> None:
+    import torch
+
+    with torch.cuda.device(device):
+        pass
+
+
 def phase_t2(dev) -> dict:
     """The roll repro tool on the card (the path whose launches count),
-    then T2's time on its tile."""
+    then T2's time on its tile and the host cost of each piece of a call."""
     import torch
 
     from videoquery_torch.kernels import roll as t2
@@ -856,8 +980,12 @@ def phase_t2(dev) -> dict:
     log(f"[t2] 12 cases equal torch.roll; [1, 80, 256] f32, axis 0: T2 {ms:.4f} ms, "
         f"plain (reads the shift on the host) {plain:.4f} ms, torch.roll {lib:.4f} ms "
         f"(CUDA events, mean of 100)")
+    costs = t2_host_costs(x, shift)
+    log("[t2] host us per call (host clock, mean of 2,000): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in costs.items()))
     return {"launches": launches, "err": max(errs), "ms": ms, "plain_ms": plain,
-            "library_ms": lib, **bound(2.0 * x.numel() * 4, 0.0, PEAK_F32)}
+            "library_ms": lib, "host_us": costs,
+            **bound(2.0 * x.numel() * 4, 0.0, PEAK_F32)}
 
 
 def main() -> int:
@@ -888,7 +1016,7 @@ def main() -> int:
                "roll.cu")
     t0 = time.perf_counter()
     _build.build(sources)
-    k1._library(), k2._library(), k3._library(), t1._library(), t2._library()
+    k1._ENTRY.load(), k2._library(), k3._library(), t1._library(), t2._ENTRY.load()
     log(f"[build] K1, K2, K3, T1, T2 ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source)")
     for src in sources:
@@ -920,6 +1048,10 @@ def main() -> int:
         "round_ms_100k_q8": rounds["round_ms"],
         "avg_counts_ms_100k_q8": rounds["sim_ms"],
         "avg_counts_plain_ms_100k_q8": rounds["sim_plain_ms"],
+        "scores_pass_events_ms": query["scores_ms"], "topk_events_ms": query["topk_ms"],
+        "library_events_ms": query["library_events_ms"],
+        "avg_counts_ms_1m_bf16_q8": query["avg_counts_ms_1m_bf16_q8"],
+        "avg_counts_bound_ms_1m_bf16_q8": query["avg_counts_bound_ms_1m_bf16_q8"],
         "launches_extract_path": ext["launches"]["K1"],
     }, {
         "name": "K2 TV-L1 pyramid level (clamp, window warp, linearise, primal-dual)",
@@ -961,6 +1093,7 @@ def main() -> int:
         "bound_ms": rollp["bound_ms"], "bound_by": rollp["bound_by"],
         "library_ms": rollp["library_ms"], "library_call": "torch.roll with a host shift",
         "shape": "[1, 80, 256] f32, axis 0, shift -5",
+        "host_us": rollp["host_us"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

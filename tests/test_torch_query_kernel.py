@@ -130,6 +130,54 @@ def test_query_independent_bits(qb, epilogue):
         assert torch.equal(a1[0], ab[0]) and torch.equal(c1[0], cb[0])
 
 
+def split_values(case):
+    """f32 targets for the 3 x bf16 split: its exact range is |t| >= 2**-110
+    and zero (see split_targets_bf16)."""
+    rng = np.random.default_rng(11)
+    n = 4096
+    sign = rng.choice([-1.0, 1.0], n)
+    if case == "wide_exponents":
+        v = sign * rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-110, 128, n)
+    elif case == "normal":
+        v = rng.normal(size=n) * 0.03                  # the scale of real targets
+    elif case == "negative":
+        v = -rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-60, 60, n)
+    elif case == "zero":
+        v = np.zeros(n)
+    elif case == "bf16_exact":
+        v = torch.from_numpy(rng.normal(size=n)).to(torch.bfloat16).double().numpy()
+    else:  # near_max: f32 values within two bf16 ulps of the f32 maximum, each
+        # sign; rounding the top quarter of them to bf16 overflows
+        top = (np.finfo(np.float32).max.view(np.int32) - 64 * np.arange(n // 2)
+               ).astype(np.int32)
+        v = np.tile(top.view(np.float32), 2) * np.repeat([1.0, -1.0], n // 2)
+    return torch.from_numpy(np.asarray(v, np.float32))
+
+
+@pytest.mark.parametrize("case", ["wide_exponents", "normal", "negative", "zero",
+                                  "bf16_exact", "near_max"])
+def test_split_targets_bf16_is_exact(case):
+    """The three bf16 terms of an f32 target sum back to it bit for bit (in
+    K1's order, t_lo first), and their products with any bf16 value sum to
+    the f32 target's product exactly (float64)."""
+    t = split_values(case)
+    terms = k1.split_targets_bf16(t)
+    for x in terms:
+        assert x.dtype == torch.bfloat16 and x.shape == t.shape
+        assert torch.isfinite(x).all()
+    hi, mid, lo = (x.float() for x in terms)
+    back = (lo + mid) + hi
+    assert torch.equal(back.view(torch.int32), t.view(torch.int32))
+    rng = np.random.default_rng(12)
+    f = torch.from_numpy(rng.normal(size=64) * 2.0 ** rng.integers(-8, 8, 64))
+    f = f.to(torch.bfloat16).double()
+    if case == "near_max":   # keep the float64 products finite and normal
+        f = f * 2.0 ** -200
+    want = t.double()[:, None] * f[None]
+    got = sum(x.double()[:, None] * f[None] for x in (lo, mid, hi))
+    assert torch.equal(got, want)
+
+
 def _bad(case):
     f, m, t, tm, w = as_torch(make_inputs(), torch.float32)
     if case == "feats_f64":
@@ -168,24 +216,32 @@ def test_wrapper_rejects_unknown_target_dtype():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_cuda_kernel_matches_plain_version(dtype):
+@pytest.mark.parametrize("dtype,target", [("f32", "f32"), ("bf16", "f32"), ("bf16", "bf16")])
+def test_cuda_kernel_matches_plain_version(dtype, target):
     """The CUDA kernel against its plain version on the card, a ragged N,
-    both epilogues; query 0 bitwise equal alone and in the batch."""
+    both epilogues, each index type with each of its target types (bf16:
+    the tensor-core body, one or three bf16 terms a target); query 0
+    bitwise equal alone and inside Q = 2, 3, 8 and 16."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; K1 has no CPU or interpret mode")
-    _, tdt = DTYPES[dtype]
-    x = make_inputs(seed=5)
-    f, m, t, tm, w = (a.cuda() for a in as_torch(x, tdt))
+    _, fdt = DTYPES[dtype]
+    _, tdt = DTYPES[target]
+    x = make_inputs(seed=5, q=16)
+    f, m, t, tm, w = (a.cuda() for a in as_torch(x, fdt))
     f, m = f[:, :, :250].contiguous(), m[:, :, :250].contiguous()
     launches = k1.LAUNCHES
-    avg, cnt = port_batched(t, tm, f, m)
-    sc = k1.fused_query_scores(f, m, t, tm, w)
+    avg, cnt = k1.query_k1(f, m, t, tm, target_dtype=tdt)
+    sc = k1.query_k1(f, m, t, tm, w, target_dtype=tdt)
     assert k1.LAUNCHES == launches + 2
-    avg_r, cnt_r = k1.ensemble_similarities_batched_reference(t, tm, f, m)
-    sc_r = k1.fused_query_scores_reference(f, m, t, tm, w)
+    avg_r, cnt_r = k1.query_k1_reference(f, m, t, tm, target_dtype=tdt)
+    sc_r = k1.query_k1_reference(f, m, t, tm, w, target_dtype=tdt)
     assert torch.equal(cnt, cnt_r)
     torch.testing.assert_close(avg, avg_r, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(sc, sc_r, rtol=RTOL, atol=ATOL)
-    a1, _ = port_batched(t[:1], tm[:1], f, m)
-    assert torch.equal(a1[0], avg[0])
+    a1, c1 = k1.query_k1(f, m, t[:1], tm[:1], target_dtype=tdt)
+    s1 = k1.query_k1(f, m, t[:1], tm[:1], w[:1], target_dtype=tdt)
+    for qb in (2, 3, 8, 16):
+        ab, cb = k1.query_k1(f, m, t[:qb], tm[:qb], target_dtype=tdt)
+        sb = k1.query_k1(f, m, t[:qb], tm[:qb], w[:qb], target_dtype=tdt)
+        assert torch.equal(a1[0], ab[0]) and torch.equal(c1[0], cb[0]), qb
+        assert torch.equal(s1[0], sb[0]), qb

@@ -17,6 +17,11 @@ raises; a CPU tensor takes the plain PyTorch version beside it
 (``*_reference``), which keeps the same
 Q-independence: each query's similarities come from a product whose shape
 does not depend on Q. ``LAUNCHES`` counts kernel launches.
+
+On the card a bf16 index runs on the tensor cores (bf16 MMAs with f32
+sums, the order of each output's k-steps fixed by D alone); f32 targets
+reach it as three exact bf16 terms (``split_targets_bf16``). An f32 index
+runs exact f32 FMAs on the CUDA cores. The source's header says more.
 """
 
 from __future__ import annotations
@@ -25,12 +30,13 @@ import ctypes
 
 import torch
 
+from videoquery_torch.kernels import _launch
+
 NEG_INF = -1e30  # scores live in [-1, 1]; query_pallas.py NEG_INF
 
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
 
-_SOURCE = "query_kernel.cu"
 _FEAT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -118,32 +124,34 @@ def fused_query_scores_reference(feats, mask, targets, tmask, weights):
 
 # -- the kernel ---------------------------------------------------------------
 
-_lib: ctypes.CDLL | None = None
+_ENTRY = _launch.Entry("query_kernel.cu", "vq_query_launch", 16)
+_max_q = 0  # vq_query_max_q(), read at the first launch
 
 
-def _library() -> ctypes.CDLL:
-    """The built K1 library with its C signatures declared (built at the
-    first launch, never at import)."""
-    global _lib
-    if _lib is None:
-        from videoquery_torch.kernels import _build
+def split_targets_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 targets as three bf16 terms (t_hi, t_mid, t_lo), each the
+    round-to-nearest bf16 of what the terms before it leave, so that
+    t_lo + t_mid + t_hi == t in f32, bit for bit, for every finite t with
+    |t| >= 2**-110 or t == 0 (below, the last remainder may be finer than a
+    bf16 subnormal). Where rounding t to bf16 would overflow (|t| within
+    half a bf16 ulp of the f32 maximum) t_hi is t truncated instead. Every
+    bf16 x bf16 product is exact in f32, so K1 takes an f32 target's
+    products against a bf16 index as three MMAs."""
+    hi = t.to(torch.bfloat16)
+    chopped = (t.view(torch.int32) & -65536).view(torch.float32).to(torch.bfloat16)
+    hi = torch.where(torch.isinf(hi) & torch.isfinite(t), chopped, hi)
+    rest = t - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
 
-        lib = _build.load(_SOURCE)
-        lib.vq_query_launch.restype = ctypes.c_int
-        lib.vq_query_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.vq_query_max_q.restype = ctypes.c_int
-        lib.vq_query_max_q.argtypes = []
-        _lib = lib
-    return _lib
 
-
-def _launch(feats, mask, targets, tmask, weights, scores: bool):
+def _launch_k1(feats, mask, targets, terms: int, tmask, weights, scores: bool):
     """Allocate the outputs and launch K1 on the current stream, in chunks
     of at most vq_query_max_q() queries (each query's result is the same in
-    any chunk)."""
-    global LAUNCHES
+    any chunk). targets: f32 [Q, S, K, D] for an f32 index, bf16
+    [Q, terms, S, K, D] for a bf16 one."""
+    global LAUNCHES, _max_q
     for t in (feats, mask, targets, tmask) + ((weights,) if scores else ()):
         if not t.is_contiguous():
             raise ValueError("K1 operands must be contiguous")
@@ -151,7 +159,11 @@ def _launch(feats, mask, targets, tmask, weights, scores: bool):
     q = targets.shape[0]
     if n >= 2 ** 31 or d >= 2 ** 31:
         raise ValueError("N and D must fit in int32")
-    lib = _library()
+    if not _max_q:
+        _ENTRY.load()
+        max_q = _ENTRY.lib.vq_query_max_q
+        max_q.argtypes, max_q.restype = [], ctypes.c_int
+        _max_q = max_q()
     dev = feats.device
     if scores:
         out = torch.empty((q, n), dtype=torch.float32, device=dev)
@@ -159,23 +171,21 @@ def _launch(feats, mask, targets, tmask, weights, scores: bool):
     else:
         out = torch.empty((q, s, n), dtype=torch.float32, device=dev)
         counts = torch.empty((q, s, n), dtype=torch.int32, device=dev)
-    vec = int(d % 4 == 0 and feats.data_ptr() % 16 == 0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        max_q = lib.vq_query_max_q()
-        for q0 in range(0, q, max_q):
-            q1 = min(q, q0 + max_q)
-            err = lib.vq_query_launch(
-                feats.data_ptr(), int(feats.dtype == torch.bfloat16),
-                mask.data_ptr(), targets[q0:q1].data_ptr(),
-                tmask[q0:q1].data_ptr(),
-                weights[q0:q1].data_ptr() if scores else None,
-                out[q0:q1].data_ptr(),
-                counts[q0:q1].data_ptr() if counts is not None else None,
-                q1 - q0, s, k, n, d, int(scores), vec, stream)
-            if err != 0:
-                raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-            LAUNCHES += 1
+    bf16 = feats.dtype == torch.bfloat16
+    # 16-byte copies: whole 16-byte pieces per row, 16-byte aligned bases
+    # (each chunk of targets starts a whole number of rows in)
+    vec = int(d % (8 if bf16 else 4) == 0 and feats.data_ptr() % 16 == 0
+              and targets.data_ptr() % 16 == 0)
+    index = feats.get_device()
+    for q0 in range(0, q, _max_q):
+        q1 = min(q, q0 + _max_q)
+        _launch.launch(
+            _ENTRY, "K1", index, feats.data_ptr(), int(bf16), mask.data_ptr(),
+            targets[q0:q1].data_ptr(), terms, tmask[q0:q1].data_ptr(),
+            weights[q0:q1].data_ptr() if scores else 0, out[q0:q1].data_ptr(),
+            counts[q0:q1].data_ptr() if counts is not None else 0,
+            q1 - q0, s, k, n, d, int(scores), vec)
+        LAUNCHES += 1
     return out, counts
 
 
@@ -195,16 +205,26 @@ def query_k1(feats, mask, targets, tmask, weights=None, *,
     target_dtype is the targets' working type: they are rounded to it before
     the product. torch.float32 keeps them (the engine: the reference's einsum
     promotes a bf16 index times f32 targets to f32); feats.dtype is the TPU
-    kernel's cast (query_pallas.py:50). The two differ on a bf16 index."""
+    kernel's cast (query_pallas.py:50). The two differ on a bf16 index.
+
+    On the card an f32 index runs K1's CUDA-core body on f32 targets; a
+    bf16 index runs its tensor-core body on bf16 targets, one term when
+    target_dtype is bf16 and the three of ``split_targets_bf16`` when it is
+    f32, so that every product is exact either way."""
     _check(feats, mask, targets, tmask, weights)
     if target_dtype not in _FEAT_DTYPES:
         raise ValueError(f"target_dtype must be float32 or bfloat16, got {target_dtype}")
     if not _on_cuda(feats):
         return query_k1_reference(feats, mask, targets, tmask, weights,
                                   target_dtype=target_dtype)
-    t = targets.to(target_dtype).float().contiguous()
-    out, counts = _launch(feats, mask, t, tmask, weights,
-                          scores=weights is not None)
+    if feats.dtype == torch.float32:
+        t, terms = targets.to(target_dtype).float().contiguous(), 1
+    elif target_dtype == torch.float32:
+        t, terms = torch.stack(split_targets_bf16(targets), dim=1), 3
+    else:
+        t, terms = targets.to(torch.bfloat16)[:, None].contiguous(), 1
+    out, counts = _launch_k1(feats, mask, t, terms, tmask, weights,
+                             scores=weights is not None)
     return out if weights is not None else (out, counts)
 
 

@@ -33,7 +33,9 @@ def ensemble_similarities_batched(
 
     Bit-compatibility contract: a query's output is bit-identical whatever
     other queries share the batch (K1 sums each dot product over D in an
-    order fixed by D alone), so batched and one-job-per-poll serving agree.
+    order fixed by D alone: fmaf over d for an f32 index, 16-deep tensor-core
+    k-steps on the three bf16 terms of each f32 target for a bf16 one), so
+    batched and one-job-per-poll serving agree.
     """
     return query_k1(cands, cand_mask, targets, target_mask,
                     target_dtype=torch.float32)
