@@ -27,12 +27,20 @@ Phases, each printing its own lines; any failure exits non-zero:
             over the same index, p50 of 10, checked on 65,536 clips.
 6. k3       K3 (window warp) against its plain version on the card: 400 pairs
             at the camera grid 48x64 and the flow grid 128x128 (d=4) and at a
-            64-wide grid, separable and full, rough random flow beyond the
-            clamp; rtol 1e-5 / atol 1e-6.
+            64-wide grid (the four-pixel vector body), and 100 at 30x101 (the
+            scalar body), separable and full, rough random flow beyond the
+            clamp; rtol 1e-5 / atol 1e-6. The host cost of a call at 48x64.
 7. k2       K2 (TV-L1 level) against its plain version on 400 key pairs at
             each production level (128, 64, 32, 16 px square; window
-            max(2, round(6 * 0.5**level)); PRODUCTION_TVL1.at_level) and at
-            the rescue window d=12; at most 1e-3 px of flow apart.
+            max(2, round(6 * 0.5**level)); PRODUCTION_TVL1.at_level), at
+            the rescue window d=12 and on 16 pairs at 256x384 (the tiles
+            route), then warp modes 1 and 2 (the image's gradients through a
+            separable and a full warp) at 16 x 8x64, 16 x 20x100 and 64 x
+            128x128; at most 1e-3 px of flow apart. For each production case
+            the plan (route, band rows, cluster, shared bytes) and the device
+            launches of a call, counted by torch.profiler and held to the
+            plan's count; the time, and in the log the parent commit's time
+            beside it (PARENT_K2_MS).
 8. extract  a synthetic 340x256 video (pan, zoom, a moving object; 8 full
             10 s clips and a tail) through the extraction CLI's code path
             (random seeded TSN, production config, warped flow) into a CSV
@@ -47,7 +55,8 @@ Phases, each printing its own lines; any failure exits non-zero:
             bf16 criterion of the f32 ones (mean |diff| / mean |f32| < 0.1,
             tests/test_nn.py). torch.profiler traces of the rgb stream's 3
             nets on 200 ticks (f32, bf16) and of one bf16 batch: device busy
-            time, idle share, the top kernels.
+            time, idle share, the top kernels, K2's and K3's device time and
+            device launches.
 9. t1       T1 (fused stride-1 Inception block) against its plain version
             at all 8 stride-1 block shapes, 3 members x 4 images: f32 within
             rtol 1e-4 / atol 1e-5 (only the order of sums differs); bf16 with
@@ -77,6 +86,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -100,6 +110,11 @@ PEAK_BYTES = 3.35e12                        # H100 SXM HBM3, bytes/s
 PEAK_BF16, PEAK_F32 = 989e12, 67e12         # tensor-core bf16; f32 without
 BF16_SHARE, BF16_REL = 0.99, 1 / 64         # T1's bf16 criterion (see phase 9)
 FLOW_ATOL_PX = 1e-3  # K2 vs plain: same operations in the same order
+# K2 per phase-7 case (pairs x height x width, window) on the parent commit's
+# kernel, CUDA events, mean of 5: one run of that commit's chip_smoke.py
+# phase 7 on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md)
+PARENT_K2_MS = {"400x128x128_d6": 4.470, "400x64x64_d3": 2.270, "400x32x32_d2": 3.420,
+                "400x16x16_d2": 1.949, "125x128x128_d12": 1.560}
 RTOL, ATOL = 1e-5, 1e-6  # tests/test_pallas.py: only the order of sums differs
 STREAMS = ("rgb", "warped_optical_flow")
 
@@ -119,8 +134,6 @@ def ptxas_summary(build_log: str) -> list[str]:
     """One line per compiled kernel instance: registers and spills, from
     nvcc -Xptxas -v (K1: query_kernel<queries per thread, scores> for an f32
     index, query_mma_kernel<n-tiles, target terms, scores> for a bf16 one)."""
-    import re
-
     out, name, spill = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']*)'", line)
@@ -140,8 +153,11 @@ def ptxas_summary(build_log: str) -> list[str]:
                 mode = ("1x1", "3x3", "ave pool + 1x1", "max pool + 1x1")[int(t1.group(2))]
                 name = f"inception_conv_kernel<{kind}, {mode}>"
             else:  # "..._cu_<hash>9pd_kernelE...": the identifier after a length
-                found = re.findall(r"\d([a-z]+(?:_[a-z]+)*_kernel)E", m.group(1))
-                name = found[-1] if found else m.group(1)
+                found = re.findall(r"\d(tvl1_band_kernel|warp4_kernel|[a-z]+(?:_[a-z]+)*_kernel)"
+                                   r"(?:ILi(\d)E)?E",
+                                   m.group(1))
+                name = ((found[-1][0] + (f"<mode {found[-1][1]}>" if found[-1][1] else ""))
+                        if found else m.group(1))
         elif name and "spill stores" in line:
             spill = line.strip()
         elif name and "registers" in line:
@@ -555,7 +571,23 @@ def trace(fn, top: int = 8) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {"wall_ms": wall, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / 1e3 / wall if kernels else None,
-            "top": [(name[:90], ms, n) for name, (ms, n) in ranked]}
+            "top": [(name[:90], ms, n) for name, (ms, n) in ranked],
+            "by_name": by_name}
+
+
+# the device kernels of K2 (tvl1_level.cu: the band route, and the tiles
+# route's per-step kernels) and of K3 (window_warp.cu), as the profiler names them
+# (with "void " before a template's name only)
+K2_KERNELS = re.compile(r"^(?:void )?\(anonymous namespace\)::(tvl1_band_kernel|pad_kernel|"
+                        r"crop_kernel|clamp_kernel|vpass_kernel|hpass_kernel|full_kernel|"
+                        r"grad_kernel|lin_kernel|pd_kernel)\b")
+K3_KERNELS = re.compile(r"^(?:void )?\(anonymous namespace\)::warp4?_kernel\b")
+
+
+def kernel_time(tr: dict, pattern) -> tuple[float, int]:
+    """Device ms and launches of the traced kernels whose names match."""
+    hits = [v for name, v in tr["by_name"].items() if pattern.search(name)]
+    return sum(ms for ms, _ in hits), sum(n for _, n in hits)
 
 
 def log_trace(tag: str, what: str, tr: dict) -> None:
@@ -579,7 +611,9 @@ def smooth_frames(n: int, h: int, w: int, dev, seed: int):
 
 
 def phase_k3(dev) -> dict:
-    """K3 vs its plain version at the production shapes; rough flow."""
+    """K3 vs its plain version at the production shapes (the vector body,
+    w % 4 == 0) and at a ragged width (the scalar body); rough flow. Then
+    the host cost of a call at the camera's 48x64."""
     import torch
 
     from videoquery_torch.kernels import window_warp as k3
@@ -587,7 +621,7 @@ def phase_k3(dev) -> dict:
     errs: list[float] = []
     times = {}
     g = torch.Generator(device=dev).manual_seed(3)
-    for (n, h, w) in ((400, 48, 64), (400, 128, 128), (400, 64, 64)):
+    for (n, h, w) in ((400, 48, 64), (400, 128, 128), (400, 64, 64), (100, 30, 101)):
         img = smooth_frames(n, h, w, dev, seed=h + w)
         u = (torch.rand((n, h, w), generator=g, device=dev) * 12 - 6).contiguous()
         v = (torch.rand((n, h, w), generator=g, device=dev) * 12 - 6).contiguous()
@@ -618,10 +652,24 @@ def phase_k3(dev) -> dict:
                 log(f"[k3] full mode, 400 x 128x128: K3 {times['full_ms']:.4f} ms, "
                     f"F.grid_sample {times['full_library_ms']:.4f} ms (max |diff| "
                     f"{lib_err:.2e}: another weight expression)")
-        log(f"[k3] {n} x {h}x{w}, d=4, separable and full: agree with the plain "
-            f"version (max abs err {max(errs):.3e})")
+            if (h, w) == (48, 64) and sep:
+                # the camera's LK warp: the host cost of one call, and the two
+                # pieces the lean launch path dropped (phase 10 prices T2's)
+                times["host_us"] = {
+                    "call": host_us(lambda: k3.window_warp(img, u, v, 4, True)),
+                    "empty_like": host_us(lambda: torch.empty_like(img)),
+                    "was_device_context": host_us(lambda: _enter_exit(img.device)),
+                    "was_stream_object": host_us(
+                        lambda: torch.cuda.current_stream(img.device).cuda_stream)}
+                torch.cuda.synchronize()
+        body = "vector" if w % 4 == 0 else "scalar"
+        log(f"[k3] {n} x {h}x{w} ({body} body), d=4, separable and full: agree with the "
+            f"plain version (max abs err {max(errs):.3e})")
     log(f"[k3] 400 x 128x128 separable: K3 {times['ms']:.4f} ms, plain "
-        f"{times['plain_ms']:.4f} ms (CUDA events, mean of 10)")
+        f"{times['plain_ms']:.4f} ms, bound {times['bound_ms']:.4f} ms "
+        f"({times['bound_ms'] / times['ms']:.2f} of it; CUDA events, mean of 10)")
+    log("[k3] host us per call at 400 x 48x64 (host clock, mean of 2,000): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times["host_us"].items()))
     return {"err": max(errs), **times}
 
 
@@ -629,41 +677,80 @@ def phase_k3(dev) -> dict:
 
 def phase_k2(dev) -> dict:
     """K2 vs its plain version on one batch of key pairs at each production
-    level, and at the rescue window."""
+    level, at the rescue window, and at a wide grid on the tiles route."""
+    import dataclasses
+
     import torch
 
+    from videoquery_torch.kernels import _launch
     from videoquery_torch.kernels import tvl1_level as k2
     from videoquery_torch.kernels.window_warp import window_warp_reference
     from videoquery_torch.pipeline.extract import PRODUCTION_TVL1
 
     p = PRODUCTION_TVL1
-    cases = [(i, 128 >> i, max(2, round(6 * 0.5 ** i))) for i in range(4)]
-    cases.append((0, 128, 12))                       # the rescue window
-    err_max, times = 0.0, {}
+    # (level, height, width, window, pairs)
+    cases = [(i, 128 >> i, 128 >> i, max(2, round(6 * 0.5 ** i)), 400) for i in range(4)]
+    cases.append((0, 128, 128, 12, 125))             # the rescue window
+    cases.append((0, 256, 384, 6, 16))               # a wide grid: the tiles route
+    err_max, times, plans = 0.0, {}, {}
     g = torch.Generator(device=dev).manual_seed(7)
-    for level, size, d in cases:
-        n = 400 if d != 12 else 125
-        i0 = smooth_frames(n, size, size, dev, seed=size + d)
+    for level, hgt, wid, d, n in cases:
+        i0 = smooth_frames(n, hgt, wid, dev, seed=hgt + d)
         # I1: I0 moved by a smooth flow of up to ~d/2 px, plus noise
-        sh = torch.full((n, size, size), 0.4 * d, device=dev)
+        sh = torch.full((n, hgt, wid), 0.4 * d, device=dev)
         i1 = window_warp_reference(i0, -sh, 0.5 * sh, d)
         i1 = (i1 + 0.01 * torch.rand(i1.shape, generator=g, device=dev)).contiguous()
         u0 = torch.zeros_like(i0)
         pl = p.at_level(level)
+        plan = k2.level_plan(n, hgt, wid, d)
+        want_launches = plan.device_launches(k2.warp_mode(pl), pl.n_warps, pl.n_iters)
         u, v = k2.tvl1_level(i0, i1, u0, u0, pl, d)
         ur, vr = k2.tvl1_level_reference(i0, i1, u0, u0, pl, d)
         err = max(float((u - ur).abs().max()), float((v - vr).abs().max()))
+        bitwise = bool(torch.equal(u, ur) and torch.equal(v, vr))
         err_max = max(err_max, err)
         if err > FLOW_ATOL_PX or not (torch.isfinite(u).all() and torch.isfinite(v).all()):
-            raise AssertionError(f"K2 level {level} ({size}px, d={d}): max |flow "
+            raise AssertionError(f"K2 level {level} ({hgt}x{wid}, d={d}): max |flow "
                                  f"diff| {err:.3e} px beyond {FLOW_ATOL_PX} px")
+        launches = _launch.device_launches(lambda: k2.tvl1_level(i0, i1, u0, u0, pl, d))
+        if launches != want_launches:
+            raise AssertionError(f"K2 {hgt}x{wid} d={d}: {launches} device launches a "
+                                 f"call, the plan says {want_launches}")
         ms = cuda_ms(lambda: k2.tvl1_level(i0, i1, u0, u0, pl, d), 5)
         plain = cuda_ms(lambda: k2.tvl1_level_reference(i0, i1, u0, u0, pl, d), 3)
-        times[(size, d)] = (ms, plain)
-        log(f"[k2] {n} pairs {size}x{size} d={d} ({pl.n_warps} warps x {pl.n_iters} "
-            f"iters): max |flow diff| {err:.3e} px; K2 {ms:.3f} ms, plain {plain:.3f} ms; "
-            f"mean |u| {float(u.abs().mean()):.3f} px")
-    ms, plain = times[(128, 6)]
+        key = f"{n}x{hgt}x{wid}_d{d}"
+        times[key] = (ms, plain)
+        plans[key] = {"route": plan.route, "rows": plan.rows, "cluster": plan.cluster,
+                      "smem": plan.smem, "device_launches": launches, "bitwise": bitwise}
+        parent = PARENT_K2_MS.get(key)
+        log(f"[k2] {n} pairs {hgt}x{wid} d={d} ({pl.n_warps} warps x {pl.n_iters} iters): "
+            f"route {plan.route}, R {plan.rows}, C {plan.cluster}, {plan.smem} shared bytes, "
+            f"{launches} device launches a call; max |flow diff| {err:.3e} px "
+            f"(bitwise equal: {bitwise}); K2 {ms:.3f} ms (parent "
+            f"{'not measured' if parent is None else f'{parent:.3f} ms'}), plain "
+            f"{plain:.3f} ms; mean |u| {float(u.abs().mean()):.3f} px")
+    # the other two warp modes (the image's gradients through a separable or
+    # a full warp) on the band route: a height below one band, a ragged last
+    # band and clusters of 8
+    for grad, sep in (("image", True), ("image", False)):
+        pm = dataclasses.replace(p.at_level(0), grad_source=grad, separable_warp=sep)
+        for n, hgt, wid, d in ((16, 8, 64, 3), (16, 20, 100, 3), (64, 128, 128, 6)):
+            i0 = smooth_frames(n, hgt, wid, dev, seed=hgt + wid)
+            i1 = (torch.roll(i0, 2, 2) + 0.01 * torch.rand(i0.shape, generator=g, device=dev)
+                  ).contiguous()
+            u0 = torch.zeros_like(i0)
+            u, v = k2.tvl1_level(i0, i1, u0, u0, pm, d)
+            ur, vr = k2.tvl1_level_reference(i0, i1, u0, u0, pm, d)
+            err = max(float((u - ur).abs().max()), float((v - vr).abs().max()))
+            bitwise = bool(torch.equal(u, ur) and torch.equal(v, vr))
+            err_max = max(err_max, err)
+            if err > FLOW_ATOL_PX:
+                raise AssertionError(f"K2 mode {k2.warp_mode(pm)} {hgt}x{wid}: max |flow "
+                                     f"diff| {err:.3e} px beyond {FLOW_ATOL_PX} px")
+            log(f"[k2] mode {k2.warp_mode(pm)} (grad_source {grad}, separable {sep}), {n} "
+                f"pairs {hgt}x{wid} d={d}: route {k2.level_plan(n, hgt, wid, d).route}; max "
+                f"|flow diff| {err:.3e} px (bitwise equal: {bitwise})")
+    ms, plain = times["400x128x128_d6"]
     # 400 pairs at 128x128 (the padded domain too), 2 warps x 10 iterations:
     # I0, I1, u, v read once, u, v written once; per padded pixel ~50 f32
     # operations per warp (clamps, two 2-tap passes, gradients, rho_c,
@@ -673,7 +760,8 @@ def phase_k2(dev) -> dict:
     px = 400 * 128 * 128
     flops = px * pl.n_warps * (50.0 + 52.0 * pl.n_iters)
     return {"err": err_max, "ms": ms, "plain_ms": plain,
-            "levels": {f"{s}px_d{d}": t for (s, d), t in times.items()},
+            "levels": {k: {"ms": t[0], "plain_ms": t[1], **plans[k]} for k, t in times.items()},
+            "plan": plans["400x128x128_d6"],
             **bound(6.0 * px * 4, flops, PEAK_F32)}
 
 
@@ -826,10 +914,19 @@ def phase_extract(dev, tmp: str) -> dict:
         with torch.no_grad():
             log_trace("extract", f"the rgb stream's 3 nets on 200 ticks, {dtype}",
                       trace(lambda: tsn.rgb.embed(x)))
-    log_trace("extract", "one 8-clip batch with bf16 networks", trace(lambda: step("bfloat16")))
+    tr = trace(lambda: step("bfloat16"))
+    log_trace("extract", "one 8-clip batch with bf16 networks", tr)
+    k2_ms, k2_n = kernel_time(tr, K2_KERNELS)
+    k3_ms, k3_n = kernel_time(tr, K3_KERNELS)
+    log(f"[extract] in that trace: K2 {k2_ms:.2f} ms of device time in {k2_n} device "
+        f"launches, K3 {k3_ms:.2f} ms in {k3_n}")
     return {"launches": launches, "step_ms": step_ms, "flow_ms": flow_ms,
             "flow_plain_ms": flow_plain_ms, "same": same, "step_bf16_ms": step16_ms,
-            "bf16_criterion": max(crit16, worst)}
+            "bf16_criterion": max(crit16, worst),
+            "bf16_batch_trace": {"wall_ms": tr["wall_ms"], "busy_ms": tr["busy_ms"],
+                                 "idle_share": tr["idle_share"], "k2_ms": k2_ms,
+                                 "k2_device_launches": k2_n, "k3_ms": k3_ms,
+                                 "k3_device_launches": k3_n}}
 
 
 # -- phase 9 ------------------------------------------------------------------
@@ -1016,7 +1113,7 @@ def main() -> int:
                "roll.cu")
     t0 = time.perf_counter()
     _build.build(sources)
-    k1._ENTRY.load(), k2._library(), k3._library(), t1._library(), t2._ENTRY.load()
+    k1._ENTRY.load(), k2._ENTRY.load(), k3._ENTRY.load(), t1._library(), t2._ENTRY.load()
     log(f"[build] K1, K2, K3, T1, T2 ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source)")
     for src in sources:
@@ -1060,9 +1157,10 @@ def main() -> int:
         "ms": level["ms"], "plain_ms": level["plain_ms"],
         "bound_ms": level["bound_ms"], "bound_by": level["bound_by"], "library_ms": None,
         "shape": "400 pairs 128x128, d=6, 2 warps x 10 iters, warped+separable",
-        "levels_ms_plain_ms": level["levels"],
+        **level["plan"], "levels": level["levels"],
         "batch_flow_ms": ext["flow_ms"], "batch_flow_plain_ms": ext["flow_plain_ms"],
         "batch_ms": ext["step_ms"], "clip_bytes_equal_cpu": ext["same"],
+        "bf16_batch_trace": ext["bf16_batch_trace"],
     }, {
         "name": "K3 window warp (separable and full)",
         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
@@ -1072,6 +1170,7 @@ def main() -> int:
         "shape": "400 x 128x128, d=4, separable",
         "full_mode_ms": warp["full_ms"], "full_mode_library_ms": warp["full_library_ms"],
         "full_mode_library_call": "F.grid_sample, bilinear, border padding",
+        "host_us_48x64": warp["host_us"],
     }, {
         "name": "T1 fused stride-1 Inception block (5 implicit-GEMM launches per call)",
         "route": "cuda", "source": T1_SOURCE, "replaces": T1_REPLACES,

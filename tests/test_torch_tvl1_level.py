@@ -16,6 +16,9 @@ product and the sum as written (as the CUDA kernel does), and the one-ulp
 difference of the warped image is multiplied by rgrad = 1 / max(|grad|^2,
 1e-6) in flat regions. The CUDA kernel itself is held against the plain
 version by the `cuda` test and by chip_smoke.py (bitwise equal there).
+
+The plan (``level_plan``: route, band rows, cluster size, shared bytes,
+device launches a call) is plain Python and is tested here on the CPU.
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ from jax.experimental.pallas import tpu as pltpu
 from videoquery.kernels.tvl1 import TVL1Params as JaxTVL1Params
 from videoquery.kernels.tvl1_pallas import tvl1_level_pallas
 from videoquery.pipeline.extract import PRODUCTION_TVL1 as JAX_PRODUCTION
+from videoquery_torch.kernels import _launch
 from videoquery_torch.kernels import tvl1_level as k2
 from videoquery_torch.kernels.tvl1 import TVL1Params
 from videoquery_torch.kernels.window_warp import PaddedGeometry
@@ -143,18 +147,75 @@ def test_wrapper_rejects_bad_operands(case):
         k2.tvl1_level(i0, i1, u, v, TVL1Params(), d)
 
 
+# (pairs, height, width, window) -> route: the production levels at their
+# windows, the rescue window, the ragged shapes above, a height below one
+# band, wide grids and heights beyond 8 bands
+PLAN_CASES = {
+    (400, 128, 128, 6): "band", (400, 64, 64, 3): "band", (400, 32, 32, 2): "band",
+    (400, 16, 16, 2): "band", (125, 128, 128, 12): "band", (4, 30, 64, 3): "band",
+    (4, 20, 100, 3): "band", (4, 8, 64, 3): "band", (16, 256, 384, 6): "tiles",
+    (4, 64, 200, 3): "tiles", (4, 136, 128, 3): "tiles", (4, 264, 128, 3): "tiles",
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_level_plan(case):
+    """The plan's route, its bands covering the padded height, its shared
+    bytes within a block's budget, and its device launches a call."""
+    n, h, w, d = case
+    plan = k2.level_plan(n, h, w, d)
+    g = PaddedGeometry(h, w, d)
+    assert plan.route == PLAN_CASES[case]
+    assert plan.smem <= k2.SMEM_BYTES == 232_448
+    mode_launches = {k2.MODE_WARPED: 5, k2.MODE_IMAGE: 4, k2.MODE_FULL: 3}
+    if plan.route == "band":
+        # the compiled band: two 16-row, 80 KB bands an SM, a 128-wide domain
+        assert (plan.rows, plan.smem, g.wp) == (k2.BAND_ROWS, 81_920, k2.BAND_WIDTH) == (
+            16, 81_920, 128)
+        assert plan.cluster <= k2.MAX_CLUSTER
+        assert plan.cluster * plan.rows >= g.hp > (plan.cluster - 1) * plan.rows
+        assert plan.smem == k2.BAND_PLANES * plan.rows * g.wp * 4
+        assert plan.grid == (plan.cluster * n,)
+        assert plan.scratch_floats(k2.MODE_WARPED) == 0
+        for mode in mode_launches:
+            assert plan.device_launches(mode, 2, 10) == 1
+    else:
+        # another padded width, or hp needs more than 8 bands of 16
+        assert g.wp != k2.BAND_WIDTH or g.hp > k2.MAX_CLUSTER * k2.BAND_ROWS
+        assert (plan.rows, plan.cluster, plan.smem) == (0, 0, 0)
+        assert plan.grid == (-(-g.wp // 32), -(-g.hp // 8), n)
+        assert plan.scratch_floats(k2.MODE_WARPED) == n * g.hp * (17 * g.wp + g.ww)
+        for mode, per_warp in mode_launches.items():
+            assert plan.device_launches(mode, 2, 10) == 3 + 2 * per_warp + 20
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(30, 64, 3, 4), (20, 100, 3, 4), (8, 64, 3, 4),
+                                   (64, 64, 3, 4), (128, 128, 6, 4), (128, 128, 12, 2),
+                                   (256, 384, 6, 2)])
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_cuda_kernel_matches_plain_version(mode):
-    """K2 against its plain version on the card (wrapping width, ragged
-    height); one C call per level."""
+def test_cuda_kernel_matches_plain_version(mode, shape):
+    """K2 against its plain version on the card, bit for bit (the same
+    operations in the same order, built without FMA contraction or fast
+    math): a wrapping width with a ragged height, a ragged last band, a
+    height below one band, bands in clusters of 4 and 8, the rescue window
+    and a wide grid on the tiles route. One C call a level; one device
+    launch on the band route. In mode 1 the band kernel needs a block
+    barrier between the warp step and the primal half-step: the separable
+    pass reads v up to d columns away, across warps, and the half-step
+    overwrites it; a missing barrier need not show here, as it depends on
+    how the warps are scheduled."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; K2 has no CPU or interpret mode")
+    h, w, d, n = shape
     p = TVL1Params(n_scales=1, n_warps=2, n_iters=8, **MODES[mode])
-    args = [torch.from_numpy(a).cuda() for a in make_pair(30, 64, n=4)]
+    args = [torch.from_numpy(a).cuda() for a in make_pair(h, w, n=n, flow=d / 2)]
     launches = k2.LAUNCHES
-    u, v = k2.tvl1_level(*args, p, 3)
+    u, v = k2.tvl1_level(*args, p, d)
     assert k2.LAUNCHES == launches + 1
-    ur, vr = k2.tvl1_level_reference(*args, p, 3)
-    torch.testing.assert_close(u, ur, rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(v, vr, rtol=RTOL, atol=ATOL)
+    ur, vr = k2.tvl1_level_reference(*args, p, d)
+    assert torch.equal(u, ur) and torch.equal(v, vr)
+    plan = k2.level_plan(n, h, w, d)
+    want = plan.device_launches(k2.warp_mode(p), p.n_warps, p.n_iters)
+    assert want == 1 or plan.route == "tiles"
+    assert _launch.device_launches(lambda: k2.tvl1_level(*args, p, d)) == want

@@ -91,13 +91,16 @@ def test_wrapper_rejects_bad_operands(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(30, 100), (30, 101)])
 @pytest.mark.parametrize("separable", [True, False])
-def test_cuda_kernel_matches_plain_version(separable):
-    """K3 against its plain version on the card, a ragged shape and rough
-    flow; one launch per call."""
+def test_cuda_kernel_matches_plain_version(separable, hw):
+    """K3 against its plain version on the card, rough flow: a width that is
+    a multiple of 4 (four pixels a thread, 16-byte loads and stores) and a
+    ragged one (a pixel a thread), both with a ragged height; one launch per
+    call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; K3 has no CPU or interpret mode")
-    img, u, v = (torch.from_numpy(a).cuda() for a in make_case(30, 100, 4, True, n=5))
+    img, u, v = (torch.from_numpy(a).cuda() for a in make_case(*hw, 4, True, n=5))
     launches = k3.LAUNCHES
     got = k3.window_warp(img, u, v, 4, separable)
     assert k3.LAUNCHES == launches + 1

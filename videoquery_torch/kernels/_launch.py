@@ -12,7 +12,8 @@ casts each slot back. ``launch`` reads the stream handle with
 enters a ``torch.cuda.device`` context only when the operands lie on
 another device than the current one, and raises when the C function
 returns a CUDA error. Nothing is built or loaded until the first launch.
-The operand checks stay in each wrapper.
+The operand checks stay in each wrapper. ``device_launches`` counts, for
+checks and measurements, the device launches of one call.
 """
 
 from __future__ import annotations
@@ -58,3 +59,22 @@ def launch(entry: Entry, name: str, device: int, *args: int) -> None:
             err = fn(entry.pack(*args, torch._C._cuda_getCurrentRawStream(device)))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def device_launches(fn, attempts: int = 3) -> int:
+    """Device launches (kernels and memsets) of one call of ``fn``, from a
+    torch.profiler trace of it. A trace now and then holds no device
+    activity at all (seen on an H100 for a 0.5 ms kernel), so a count of 0
+    is taken again, up to ``attempts`` traces; any other count is final."""
+    from torch.profiler import ProfilerActivity, profile
+
+    count = 0
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        count = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if count:
+            break
+    return count

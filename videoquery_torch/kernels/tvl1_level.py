@@ -18,17 +18,26 @@ image; ``"image"`` with ``separable_warp`` warps I1 and its centred
 gradients; ``separable_warp=False`` is the full 4-tap warp of all three.
 
 ``tvl1_level`` is the wrapper. A CUDA tensor launches the kernel (one C call
-per level), or raises; a CPU tensor takes the plain PyTorch version beside
-it (``tvl1_level_reference``). ``LAUNCHES`` counts C calls.
+per level, through ``kernels/_launch.py``), or raises; a CPU tensor takes
+the plain PyTorch version beside it (``tvl1_level_reference``).
+``LAUNCHES`` counts C calls. ``level_plan`` chooses, from the shape alone,
+how a call runs: the "band" route is one device launch per level, the whole
+level of a pair in the shared memory of one thread-block cluster, for
+padded widths of 128 (every production level); other shapes (wider or
+taller grids) take the "tiles" route, a few launches per warp and one per
+primal-dual iteration with the state in device memory.
+``LevelPlan.device_launches`` gives the device launches of a call.
 """
 
 from __future__ import annotations
 
-import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from videoquery_torch.kernels import _launch
 from videoquery_torch.kernels.tvl1 import TVL1Params
 from videoquery_torch.kernels.window_warp import (PaddedGeometry, edge_pad,
                                                   full_warp, hpass, vpass)
@@ -153,24 +162,80 @@ def tvl1_level_reference(i0, i1, u, v, p: TVL1Params = TVL1Params(),
 
 # -- the kernel ---------------------------------------------------------------
 
-_lib: ctypes.CDLL | None = None
+SMEM_BYTES = 232_448     # dynamic shared memory a block may use on sm_90
+MAX_CLUSTER = 8          # the portable thread-block cluster size
+BAND_ROWS = 16           # the band height that lets two bands share an SM
+BAND_WIDTH = 128         # the padded width the band kernel is compiled for
+BAND_PLANES = 10         # u, v, q11, q12, q21, q22, I1wx, I1wy, rho_c, rgrad
+BAND_SMEM = BAND_PLANES * BAND_ROWS * BAND_WIDTH * 4
+_TX, _TY = 32, 8         # the tiles route's primal-dual tile
 
 
-def _library() -> ctypes.CDLL:
-    """The built K2 library with its C signatures declared (built at the
-    first launch, never at import)."""
-    global _lib
-    if _lib is None:
-        from videoquery_torch.kernels import _build
+@dataclasses.dataclass(frozen=True)
+class LevelPlan:
+    """How one K2 call runs, chosen from the shape alone (level_plan).
 
-        lib = _build.load(_SOURCE)
-        lib.vq_tvl1_level_scratch.restype = ctypes.c_longlong
-        lib.vq_tvl1_level_scratch.argtypes = [ctypes.c_int] * 5
-        lib.vq_tvl1_level.restype = ctypes.c_int
-        lib.vq_tvl1_level.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                                      + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-        _lib = lib
-    return _lib
+    route "band": one launch of tvl1_band_kernel, one cluster of ``cluster``
+    blocks per pair, each holding ``rows`` padded rows of its pair's level
+    state in ``smem`` bytes of shared memory; grid (cluster * n,). route
+    "tiles": a launch per step and per primal-dual iteration, the state in
+    device scratch; ``rows``, ``cluster`` and ``smem`` are 0 and grid is the
+    primal-dual launch's (wp / 32, hp / 8, n)."""
+
+    route: str
+    rows: int
+    cluster: int
+    smem: int
+    grid: tuple[int, ...]
+    geo: PaddedGeometry
+    n: int
+
+    def device_launches(self, mode: int, n_warps: int, n_iters: int) -> int:
+        """Device launches of one C call (memsets included)."""
+        if self.n == 0:
+            return 0
+        if self.route == "band":
+            return 1
+        warp_step = 1 if mode == MODE_FULL else (3 if mode == MODE_WARPED else 2)
+        # memset + pad, per warp clamp + warp passes + linearisation, the
+        # primal-dual launches, the crop
+        return 3 + n_warps * (2 + warp_step) + n_warps * n_iters
+
+    def scratch_floats(self, mode: int) -> int:
+        """Device scratch of one call (tiles route: 17 [n, hp, wp] planes and
+        the vertical pass's [n, hp, ww] planes; none on the band route)."""
+        if self.route == "band":
+            return 0
+        g = self.geo
+        t_planes = {MODE_WARPED: 1, MODE_IMAGE: 3, MODE_FULL: 0}[mode]
+        return self.n * g.hp * (17 * g.wp + t_planes * g.ww)
+
+
+@functools.lru_cache(maxsize=256)
+def level_plan(n: int, h: int, w: int, d: int) -> LevelPlan:
+    """The plan of a K2 call on n pairs of [h, w] with window d.
+
+    The band kernel is compiled for bands of BAND_ROWS rows of a padded
+    width of BAND_WIDTH (every production level, w <= 128, and the rescue
+    window): such a shape with hp within MAX_CLUSTER bands takes the band
+    route, C = ceil(hp / BAND_ROWS). Any other shape (a wider grid, or a
+    taller one) takes the tiles route."""
+    g = PaddedGeometry(h, w, d)
+    cluster = -(-g.hp // BAND_ROWS)
+    if g.wp == BAND_WIDTH and cluster <= MAX_CLUSTER:
+        return LevelPlan("band", BAND_ROWS, cluster, BAND_SMEM, (cluster * n,), g, n)
+    return LevelPlan("tiles", 0, 0, 0, (-(-g.wp // _TX), -(-g.hp // _TY), n), g, n)
+
+
+@functools.lru_cache(maxsize=64)
+def _constant_bits(p: TVL1Params) -> tuple[int, int, int, int]:
+    """_constants(p) as the bit patterns of their float32 values (the C
+    entry's argument slots are integers)."""
+    return tuple(int(np.float32(c).view(np.int32)) for c in _constants(p))
+
+
+_ENTRY = _launch.Entry(_SOURCE, "vq_tvl1_level", 24)
+_ROUTES = {"band": 0, "tiles": 1}
 
 
 def _check(i0, i1, u, v, max_disp) -> None:
@@ -198,29 +263,26 @@ def tvl1_level(i0, i1, u, v, p: TVL1Params = TVL1Params(), max_disp: int = 6):
     if not (i0.is_contiguous() and i1.is_contiguous()):
         raise ValueError("K2 operands must be contiguous")
     n, h, w = i0.shape
-    g = PaddedGeometry(h, w, max_disp)
-    if n * g.hh * g.ww >= 2 ** 31:
+    plan = level_plan(n, h, w, max_disp)
+    if n * plan.geo.hh * plan.geo.ww >= 2 ** 31:
         raise ValueError("K2 takes fewer than 2**31 padded pixels per launch")
     mode = warp_mode(p)
-    lib = _library()
-    up = edge_pad(u, g.hp, g.wp).contiguous()
-    vp = edge_pad(v, g.hp, g.wp).contiguous()
+    u, v = u.contiguous(), v.contiguous()
     ix = iy = None
     if mode != MODE_WARPED:
         ix, iy = (t.contiguous() for t in centered_grad(i1))
-    scratch = torch.empty(lib.vq_tvl1_level_scratch(n, h, w, max_disp, mode),
-                          dtype=torch.float32, device=i0.device)
-    l_t, taut, theta, eps = _constants(p)
-    with torch.cuda.device(i0.device):
-        stream = torch.cuda.current_stream(i0.device).cuda_stream
-        err = lib.vq_tvl1_level(
-            i0.data_ptr(), i1.data_ptr(),
-            ix.data_ptr() if ix is not None else None,
-            iy.data_ptr() if iy is not None else None,
-            up.data_ptr(), vp.data_ptr(), scratch.data_ptr(),
-            n, h, w, max_disp, mode, p.n_warps, p.n_iters,
-            l_t, taut, theta, eps, stream)
-    if err != 0:
-        raise RuntimeError(f"K2 launch failed: CUDA error {err}")
+    out = torch.empty((2, n, h, w), dtype=torch.float32, device=i0.device)
+    scratch = None
+    if plan.route == "tiles":
+        scratch = torch.empty(plan.scratch_floats(mode), dtype=torch.float32,
+                              device=i0.device)
+    out_ptr = out.data_ptr()
+    _launch.launch(
+        _ENTRY, "K2", i0.get_device(), i0.data_ptr(), i1.data_ptr(),
+        0 if ix is None else ix.data_ptr(), 0 if iy is None else iy.data_ptr(),
+        u.data_ptr(), v.data_ptr(), out_ptr, out_ptr + n * h * w * 4,
+        0 if scratch is None else scratch.data_ptr(),
+        n, h, w, max_disp, mode, p.n_warps, p.n_iters, *_constant_bits(p),
+        _ROUTES[plan.route], plan.rows, plan.cluster, plan.smem)
     LAUNCHES += 1
-    return up[:, :h, :w].contiguous(), vp[:, :h, :w].contiguous()
+    return out[0], out[1]

@@ -10,7 +10,11 @@ exact bilinear; ``separable=False`` is the 4-tap bilinear.
 
 ``window_warp`` is the wrapper. A CUDA tensor launches the kernel, or
 raises; a CPU tensor takes the plain PyTorch version beside it
-(``window_warp_reference``). ``LAUNCHES`` counts kernel launches.
+(``window_warp_reference``). ``LAUNCHES`` counts kernel launches. Most of
+the extraction path's calls are the camera's small LK warps, where the
+host's cost is the time, so the card's operands pass in one chain of cheap
+comparisons and launch through ``kernels/_launch.py`` (one packed argument
+block, the raw stream handle).
 
 The plain passes here work on the TPU kernel's padded domain (planes padded
 to multiples of (8, 128), the image padded by d+1 and read modulo its padded
@@ -20,10 +24,11 @@ size, as ``pltpu.roll`` is circular); the level kernel K2
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
+
+from videoquery_torch.kernels import _launch
 
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
@@ -154,22 +159,7 @@ def window_warp_reference(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 # -- the kernel ---------------------------------------------------------------
 
-_lib: ctypes.CDLL | None = None
-
-
-def _library() -> ctypes.CDLL:
-    """The built K3 library with its C signature declared (built at the
-    first launch, never at import)."""
-    global _lib
-    if _lib is None:
-        from videoquery_torch.kernels import _build
-
-        lib = _build.load(_SOURCE)
-        lib.vq_window_warp.restype = ctypes.c_int
-        lib.vq_window_warp.argtypes = ([ctypes.c_void_p] * 4
-                                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        _lib = lib
-    return _lib
+_ENTRY = _launch.Entry(_SOURCE, "vq_window_warp", 9)
 
 
 def _check(img, u, v, d) -> None:
@@ -190,6 +180,20 @@ def window_warp(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                 d: int = 4, separable: bool = True) -> torch.Tensor:
     """Batched window warp f32 [N, H, W]; flow clamped to +-d."""
     global LAUNCHES
+    # the card's operands pass in a few cheap comparisons; anything else goes
+    # on to _check and the plain version, which say what is wrong
+    if (img.is_cuda and img.dtype is torch.float32 and u.dtype is torch.float32
+            and v.dtype is torch.float32 and img.dim() == 3 and u.shape == img.shape
+            and v.shape == img.shape and d >= 1 and img.is_contiguous()
+            and u.is_contiguous() and v.is_contiguous() and img.numel() < 2 ** 31):
+        dev = img.get_device()
+        if u.get_device() == dev and v.get_device() == dev:
+            n, h, w = img.shape
+            out = torch.empty_like(img)
+            _launch.launch(_ENTRY, "K3", dev, img.data_ptr(), u.data_ptr(), v.data_ptr(),
+                           out.data_ptr(), n, h, w, d, int(separable))
+            LAUNCHES += 1
+            return out
     _check(img, u, v, d)
     if img.device.type == "cpu":
         return window_warp_reference(img, u, v, d, separable)
@@ -197,17 +201,4 @@ def window_warp(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"K3 runs on CUDA or (plain version) the CPU, not {img.device}")
     if not (img.is_contiguous() and u.is_contiguous() and v.is_contiguous()):
         raise ValueError("K3 operands must be contiguous")
-    n, h, w = img.shape
-    if n * h * w >= 2 ** 31:
-        raise ValueError("K3 takes fewer than 2**31 pixels per launch")
-    out = torch.empty_like(img)
-    lib = _library()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.vq_window_warp(img.data_ptr(), u.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), n, h, w, d, int(separable),
-                                 stream)
-    if err != 0:
-        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return out
+    raise ValueError("K3 takes fewer than 2**31 pixels per launch")
