@@ -9,6 +9,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build    K1, K2, K3, T1 and T2 (kernels/csrc/{query_kernel,tvl1_level,
             window_warp,inception_block,roll}.cu) compiled by nvcc for sm_90a,
             one process each, all at once.
+2b. cuda    the `cuda` tests, which import no jax: python -m pytest
+            --noconftest -p no:cacheprovider -m cuda
+            tests/test_torch_cuda_kernels.py; every test must pass, none
+            skip.
 3. k1       K1 against its plain PyTorch version on the card at Q=16, S=2,
             K=3, D=1024, N=65,536+77 (ragged edge), ~25% mask holes: f32 and
             bf16 index, both epilogues, both target modes; rtol 1e-5 /
@@ -53,18 +57,29 @@ Phases, each printing its own lines; any failure exits non-zero:
             the loader ingests its CSVs, and its signatures, and those of an
             8-clip batch in bf16 (timed too), are within the JAX package's
             bf16 criterion of the f32 ones (mean |diff| / mean |f32| < 0.1,
-            tests/test_nn.py). torch.profiler traces of the rgb stream's 3
-            nets on 200 ticks (f32, bf16) and of one bf16 batch: device busy
-            time, idle share, the top kernels, K2's and K3's device time and
-            device launches.
+            tests/test_nn.py). The bf16 CLI run must launch T1 (every
+            stride-1 block of the bf16 nets); T1's launches per bf16 batch
+            (48: 8 blocks x 3 nets x 2 streams). The bf16 batch timed with
+            the T1 route and with the unfused route (each block a chain of
+            convs, pools and a concat), in turns. torch.profiler traces of
+            the rgb stream's 3 nets on 200 ticks (f32, bf16) and of one bf16
+            batch: device busy time, idle share, the top kernels, the
+            device time by kind (T1, cuDNN convs, pools, casts and
+            elementwise passes, concats), K2's, K3's and T1's device time
+            and device launches.
 9. t1       T1 (fused stride-1 Inception block) against its plain version
-            at all 8 stride-1 block shapes, 3 members x 4 images: f32 within
-            rtol 1e-4 / atol 1e-5 (only the order of sums differs); bf16 with
-            >= 99% of outputs within one bf16 ulp and max |diff| <= 1/64 of
-            the largest output. Then the A/B tool
-            (videoquery_torch.tools.inception_block_bench) at 3 x 200 images
-            in bf16: T1 and the port's unfused cuDNN block, ms per block and
-            in total.
+            at all 8 stride-1 block shapes, 3 members x 4 images, and in the
+            extraction path's geometry (one member, its own x, 25 images,
+            non-zero biases): f32 within rtol 1e-4 / atol 1e-5 (only the
+            order of sums differs); bf16 with >= 99% of outputs within one
+            bf16 ulp and max |diff| <= 1/64 of the largest output; at most
+            3 device launches a bf16 call (torch.profiler; a trace may miss
+            one). The repaired bf16 stem
+            conv (widened to f32 under TF32) equals the f32 conv rounded
+            once on >= 99.9% of outputs. Then the A/B tool
+            (videoquery_torch.tools.inception_block_bench) at 1 x 200 (the
+            path) and 3 x 200 images in bf16: T1 and the same block as a
+            bare cuDNN bf16 chain, ms per block and in total.
 10. t2      the roll repro tool (videoquery_torch.tools.roll_repro): T2 with
             the shift read from device memory, 12 cases, each equal to
             torch.roll; T2 and torch.roll over 100 back-to-back calls, and
@@ -147,11 +162,13 @@ def ptxas_summary(build_log: str) -> list[str]:
                 epi = "scores" if k1m.group(3) == "1" else "avg+counts"
                 name = (f"query_mma_kernel<bf16, {k1m.group(1)} n-tiles of 8 queries, "
                         f"{k1m.group(2)} target terms, {epi}>")
-            elif "inception_conv_kernel" in m.group(1):
-                t1 = re.search(r"kernelI(\w+?)Li(\d)E", m.group(1))
-                kind = "bf16" if "bfloat16" in t1.group(1) else "f32"
-                mode = ("1x1", "3x3", "ave pool + 1x1", "max pool + 1x1")[int(t1.group(2))]
-                name = f"inception_conv_kernel<{kind}, {mode}>"
+            elif "f32_conv_kernel" in m.group(1):
+                t1 = re.search(r"f32_conv_kernelILi(\d)E", m.group(1))
+                mode = ("1x1", "3x3", "ave pool + 1x1", "max pool + 1x1")[int(t1.group(1))]
+                name = f"T1 f32_conv_kernel<{mode}>"
+            elif "xtile_kernel" in m.group(1) or "conv3x3_kernel" in m.group(1):
+                name = "T1 " + ("xtile_kernel" if "xtile_kernel" in m.group(1)
+                                else "conv3x3_kernel") + " (bf16, wgmma)"
             else:  # "..._cu_<hash>9pd_kernelE...": the identifier after a length
                 found = re.findall(r"\d(tvl1_band_kernel|warp4_kernel|[a-z]+(?:_[a-z]+)*_kernel)"
                                    r"(?:ILi(\d)E)?E",
@@ -191,6 +208,32 @@ def check_close(name: str, got, want, errs: list) -> None:
     errs.append(err)
     if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
         raise AssertionError(f"{name}: max abs err {err:.3e} beyond rtol {RTOL} atol {ATOL}")
+
+
+# -- phase 2b -----------------------------------------------------------------
+
+CUDA_TESTS = ("tests/test_torch_cuda_kernels.py",)
+
+
+def phase_cuda_tests() -> int:
+    """The `cuda` tests in a pytest of their own, without the repository's
+    conftest (it imports jax); returns the number that passed. Fails unless
+    pytest exits 0 with every test passed and none skipped."""
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+           "-m", "cuda", *CUDA_TESTS]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in r.stdout.strip().splitlines() if ln.strip()]
+    summary = lines[-1] if lines else ""
+    counts = dict((k, int(n)) for n, k in re.findall(r"(\d+) (\w+)", summary))
+    passed = counts.pop("passed", 0)
+    others = {k: n for k, n in counts.items() if not k.startswith("warning")}
+    log(f"[cuda] {' '.join(cmd[1:])}: {summary} ({time.perf_counter() - t0:.1f} s)")
+    if r.returncode != 0 or not passed or others:
+        raise AssertionError(f"the cuda tests did not all pass (exit {r.returncode}):\n"
+                             + "\n".join(lines[-40:]) + r.stderr[-2000:])
+    log(f"[cuda] {passed} cuda tests passed, none skipped")
+    return passed
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -582,6 +625,15 @@ K2_KERNELS = re.compile(r"^(?:void )?\(anonymous namespace\)::(tvl1_band_kernel|
                         r"crop_kernel|clamp_kernel|vpass_kernel|hpass_kernel|full_kernel|"
                         r"grad_kernel|lin_kernel|pd_kernel)\b")
 K3_KERNELS = re.compile(r"^(?:void )?\(anonymous namespace\)::warp4?_kernel\b")
+# T1's bf16 kernels (inception_block.cu)
+T1_KERNELS = re.compile(r"^(?:void )?\(anonymous namespace\)::(xtile|conv3x3)_kernel\b")
+# the device time of the networks by kind, first match wins
+NET_KINDS = (("T1", T1_KERNELS),
+             ("cuDNN convs", re.compile(r"conv|xmma|implicit|cudnn|fprop|sm90_|wgrad|dgrad",
+                                        re.I)),
+             ("pools", re.compile(r"pool", re.I)),
+             ("concats", re.compile(r"CatArray", re.I)),
+             ("casts and elementwise", re.compile(r"elementwise|copy|reduce", re.I)))
 
 
 def kernel_time(tr: dict, pattern) -> tuple[float, int]:
@@ -590,12 +642,25 @@ def kernel_time(tr: dict, pattern) -> tuple[float, int]:
     return sum(ms for ms, _ in hits), sum(n for _, n in hits)
 
 
+def by_kind(tr: dict) -> dict:
+    """{kind: (device ms, launches)} of a trace's kernels (NET_KINDS, the
+    rest "other")."""
+    out = {kind: (0.0, 0) for kind, _ in NET_KINDS}
+    out["other"] = (0.0, 0)
+    for name, (ms, n) in tr["by_name"].items():
+        kind = next((k for k, pat in NET_KINDS if pat.search(name)), "other")
+        out[kind] = (out[kind][0] + ms, out[kind][1] + n)
+    return out
+
+
 def log_trace(tag: str, what: str, tr: dict) -> None:
     idle = "not measured" if tr["idle_share"] is None else f"{tr['idle_share']:.3f}"
     log(f"[{tag}] trace of {what}: traced wall {tr['wall_ms']:.1f} ms, device busy "
         f"{tr['busy_ms']:.1f} ms, idle share {idle}")
     for name, ms, n in tr["top"]:
         log(f"[{tag}]   {ms:8.2f} ms in {n:4d} launches: {name}")
+    log(f"[{tag}]   by kind: " + ", ".join(f"{k} {ms:.2f} ms in {n} launches"
+                                          for k, (ms, n) in by_kind(tr).items()))
 
 
 def smooth_frames(n: int, h: int, w: int, dev, seed: int):
@@ -806,8 +871,9 @@ def phase_extract(dev, tmp: str) -> dict:
     import torch
 
     from videoquery_torch.index.csvio import read_features_csv
-    from videoquery_torch.kernels import query as k1, tvl1_flow
+    from videoquery_torch.kernels import inception_block as t1, query as k1, tvl1_flow
     from videoquery_torch.kernels import tvl1_level as k2, window_warp as k3
+    from videoquery_torch.nn.bn_inception import BNInception
     from videoquery_torch.nn.tsn import TwoStreamTSN
     from videoquery_torch.pipeline import decode, extract
     from videoquery_torch.service.loader import DBLoader
@@ -840,12 +906,17 @@ def phase_extract(dev, tmp: str) -> dict:
     for name, n in launches.items():
         assert n > 0, f"the extraction path never launched {name}"
 
-    # the CLI in bf16: the loader ingests its CSVs; its signatures meet the
-    # JAX package's bf16-vs-f32 criterion against the f32 run's
+    # the CLI in bf16 (T1's main path): the loader ingests its CSVs; its
+    # signatures meet the JAX package's bf16-vs-f32 criterion against the
+    # f32 run's
     out16 = os.path.join(tmp, "features_bf16")
+    t1.LAUNCHES = 0
     t0 = time.perf_counter()
     extract.main([video, "--out", out16, "--seed", "0", "--dtype", "bfloat16"])
     t_cli16 = time.perf_counter() - t0
+    launches["T1"] = t1.LAUNCHES
+    log(f"[extract] CLI --dtype bfloat16: T1 launches {launches['T1']}")
+    assert launches["T1"] > 0, "the bf16 extraction path never launched T1"
     n16 = DBLoader(FakeClient(FakeAPI())).load_tree(out16)
     assert n16 == n_rows, (n16, n_rows)
     worst = 0.0
@@ -870,7 +941,22 @@ def phase_extract(dev, tmp: str) -> dict:
         return extract.extract_step(tsn, batch, plan, ex.cfg, True, ex.tvl1, dtype)
 
     step_ms = p50_ms(step, 3, warmup=1)
+    # the bf16 batch with the T1 route and with the unfused route (every
+    # block a chain of convs, pools and a concat), in turns
     step16_ms = p50_ms(lambda: step("bfloat16"), 3, warmup=1)
+    fused_route = BNInception._inception
+    BNInception._inception = BNInception._inception_unfused
+    try:
+        step16_unfused_ms = p50_ms(lambda: step("bfloat16"), 3, warmup=1)
+    finally:
+        BNInception._inception = fused_route
+    step16_again_ms = p50_ms(lambda: step("bfloat16"), 3, warmup=1)
+    t1.LAUNCHES = 0
+    step("bfloat16")
+    t1_per_batch = t1.LAUNCHES
+    log(f"[extract] T1 launches per bf16 8-clip batch: {t1_per_batch} (8 stride-1 blocks x "
+        f"3 nets x 2 streams = 48)")
+    assert t1_per_batch == 48, t1_per_batch
     sig32, sig16 = step(), step("bfloat16")
     crit16 = max(bf16_criterion(b.cpu().numpy(), a.cpu().numpy())
                  for a, b in zip(sig32, sig16))
@@ -905,28 +991,36 @@ def phase_extract(dev, tmp: str) -> dict:
         f"p50 {step_ms:.1f} ms ({8e3 / step_ms:.2f} clips/s); its flow: kernels "
         f"p50 {flow_ms:.1f} ms, plain versions p50 {flow_plain_ms:.1f} ms")
     log(f"[extract] the same batch with bf16 networks: p50 {step16_ms:.1f} ms "
-        f"({8e3 / step16_ms:.2f} clips/s); signatures mean |bf16 - f32| / mean |f32| "
-        f"{crit16:.4f} (< 0.1)")
+        f"({8e3 / step16_ms:.2f} clips/s), again {step16_again_ms:.1f} ms; with the "
+        f"unfused route between them {step16_unfused_ms:.1f} ms; signatures mean "
+        f"|bf16 - f32| / mean |f32| {crit16:.4f} (< 0.1)")
     # where the time goes: the networks alone (1,200 forwards), f32 and bf16
     rgb_in = torch.randn((200, 224, 224, 3), device=dev) * 50
+    nets = {}
     for dtype in ("float32", "bfloat16"):
         x = rgb_in.to(extract.DTYPES[dtype])
         with torch.no_grad():
-            log_trace("extract", f"the rgb stream's 3 nets on 200 ticks, {dtype}",
-                      trace(lambda: tsn.rgb.embed(x)))
+            tr_net = trace(lambda: tsn.rgb.embed(x))
+        log_trace("extract", f"the rgb stream's 3 nets on 200 ticks, {dtype}", tr_net)
+        nets[dtype] = {"wall_ms": tr_net["wall_ms"], "busy_ms": tr_net["busy_ms"],
+                       "by_kind": by_kind(tr_net)}
     tr = trace(lambda: step("bfloat16"))
     log_trace("extract", "one 8-clip batch with bf16 networks", tr)
     k2_ms, k2_n = kernel_time(tr, K2_KERNELS)
     k3_ms, k3_n = kernel_time(tr, K3_KERNELS)
+    t1_ms, t1_n = kernel_time(tr, T1_KERNELS)
     log(f"[extract] in that trace: K2 {k2_ms:.2f} ms of device time in {k2_n} device "
-        f"launches, K3 {k3_ms:.2f} ms in {k3_n}")
+        f"launches, K3 {k3_ms:.2f} ms in {k3_n}, T1 {t1_ms:.2f} ms in {t1_n}")
     return {"launches": launches, "step_ms": step_ms, "flow_ms": flow_ms,
             "flow_plain_ms": flow_plain_ms, "same": same, "step_bf16_ms": step16_ms,
-            "bf16_criterion": max(crit16, worst),
+            "step_bf16_again_ms": step16_again_ms, "step_bf16_unfused_ms": step16_unfused_ms,
+            "t1_launches_per_bf16_batch": t1_per_batch,
+            "bf16_criterion": max(crit16, worst), "rgb_nets_trace": nets,
             "bf16_batch_trace": {"wall_ms": tr["wall_ms"], "busy_ms": tr["busy_ms"],
                                  "idle_share": tr["idle_share"], "k2_ms": k2_ms,
                                  "k2_device_launches": k2_n, "k3_ms": k3_ms,
-                                 "k3_device_launches": k3_n}}
+                                 "k3_device_launches": k3_n, "t1_ms": t1_ms,
+                                 "t1_device_launches": t1_n}}
 
 
 # -- phase 9 ------------------------------------------------------------------
@@ -945,25 +1039,34 @@ def bf16_agreement(got, want) -> tuple[float, float]:
 
 
 def phase_t1(dev) -> dict:
-    """T1 vs its plain version at the 8 stride-1 shapes, then the A/B tool
-    at 3 x 200 bf16 images (the path whose launches count)."""
+    """T1 vs its plain version at the 8 stride-1 shapes (3 members, x
+    shared) and in the extraction path's geometry (one member, its own x),
+    the repaired bf16 stem conv against f32 rounded once, then the A/B tool
+    at 1 x 200 and 3 x 200 bf16 images."""
     import torch
+    import torch.nn.functional as F
 
+    from videoquery_torch.kernels import _launch
     from videoquery_torch.kernels import inception_block as t1
-    from videoquery_torch.nn.bn_inception import init_params
+    from videoquery_torch.nn.bn_inception import BNInception, init_params
     from videoquery_torch.tools import inception_block_bench as bench
 
     base = init_params(0, 3)
     g = torch.Generator(device=dev).manual_seed(9)
     errs: list[float] = []
     share_min, rel_max = 1.0, 0.0
+    dev_launches = set()
     for name in bench.stride1_blocks():
         hw, cin, spec = bench.block_geometry()[name]
-        for dt in (torch.float32, torch.bfloat16):
-            x, wts = bench.block_case(name, 4, 3, dt, dev, g, base)
+        for members, images, dt in ((3, 4, torch.float32), (3, 4, torch.bfloat16),
+                                    (1, 25, torch.bfloat16)):
+            x, wts = bench.block_case(name, images, members, dt, dev, g, base)
+            if members == 1:    # the path's geometry, with non-zero biases
+                for b in (wts.b1, wts.b3, wts.bd1, wts.bd2, wts.bpp):
+                    b.normal_(0.0, 0.3, generator=g)
             got = t1.fused_inception(wts, name, spec, x)
             want = t1.fused_inception_reference(wts, name, spec, x)
-            assert got.shape == want.shape == (3, 4, hw, hw, want.shape[-1])
+            assert got.shape == want.shape == (members, images, hw, hw, want.shape[-1])
             if dt == torch.float32:
                 err = float((got - want).abs().max())
                 errs.append(err)
@@ -974,28 +1077,58 @@ def phase_t1(dev) -> dict:
                 share, rel = bf16_agreement(got, want)
                 share_min, rel_max = min(share_min, share), max(rel_max, rel)
                 if share < BF16_SHARE or rel > BF16_REL:
-                    raise AssertionError(f"T1 {name} bf16: {share:.5f} of outputs within "
-                                         f"one ulp, max rel err {rel:.2e}")
-        log(f"[t1] {name} ({hw}x{hw}, cin {cin}), 3 members x 4 images: f32 and bf16 "
-            f"agree with the plain version")
+                    raise AssertionError(f"T1 {name} bf16 ({members} x {images}): {share:.5f} "
+                                         f"of outputs within one ulp, max rel err {rel:.2e}")
+                dev_launches.add(_launch.device_launches(
+                    lambda: t1.fused_inception(wts, name, spec, x)))
+        log(f"[t1] {name} ({hw}x{hw}, cin {cin}): 3 members x 4 images f32 and bf16, and "
+            f"1 member x 25 images bf16, agree with the plain version")
     torch.cuda.synchronize()
     log(f"[t1] f32 max abs err {max(errs):.3e} (rtol 1e-4, atol 1e-5); bf16: worst share "
         f"within one ulp {share_min:.5f} (>= {BF16_SHARE}), worst max |diff| / max "
-        f"|value| {rel_max:.2e} (<= {BF16_REL:.4f})")
+        f"|value| {rel_max:.2e} (<= {BF16_REL:.4f}); device launches a bf16 call "
+        f"{sorted(dev_launches)} (profiler)")
+    # a trace may miss a launch (kernels/_launch.py), never add one
+    assert 0 < max(dev_launches) <= t1.DEVICE_LAUNCHES[torch.bfloat16], dev_launches
 
-    t1.LAUNCHES = 0
-    rows = bench.run(images=200, splits=3, dtype="bfloat16", reps=10, device=dev,
-                     log=lambda m: log(f"[t1] {m}"))
-    launches = t1.LAUNCHES
-    assert launches > 0, "the A/B never launched T1"
-    for r in rows:
-        assert r["rel_diff"] < 1e-2, (r["block"], r["rel_diff"])
-    tot = {k: sum(r[k] for r in rows) for k in ("t1_ms", "cudnn_ms", "plain_ms", "bound_ms")}
-    return {"launches": launches, "err": max(errs), "bf16_share": share_min,
-            "bf16_rel": rel_max, "ms": tot["t1_ms"], "plain_ms": tot["plain_ms"],
-            "library_ms": tot["cudnn_ms"], "bound_ms": tot["bound_ms"],
+    # the repaired stem conv: bf16 values widened to f32 under TF32 (exact
+    # in TF32), against the same conv in full f32, rounded once
+    params = init_params(1, 3)
+    params["conv1/7x7_s2"]["b"] = (torch.randn(64, generator=torch.Generator().manual_seed(3))
+                                   * 0.3).numpy()
+    net = BNInception(params).to(dev)
+    xs = (torch.randn((64, 224, 224, 3), generator=g, device=dev) * 50).to(torch.bfloat16)
+    xs = xs.permute(0, 3, 1, 2)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = net._conv("conv1/7x7_s2", xs)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = F.conv2d(xs.float(), net.weights["conv1__7x7_s2"].to(torch.bfloat16).float(),
+                    net.biases["conv1__7x7_s2"], stride=2, padding=3).relu_().to(torch.bfloat16)
+    stem_same = float((got == want).float().mean())
+    log(f"[t1] bf16 stem conv (TF32 on the widened values) equals f32 rounded once on "
+        f"{stem_same:.6f} of outputs (>= 0.999)")
+    assert stem_same >= 0.999, stem_same
+    del net, xs, got, want
+
+    out = {"err": max(errs), "bf16_share": share_min, "bf16_rel": rel_max,
+           "device_launches_bf16": t1.DEVICE_LAUNCHES[torch.bfloat16],
+           "stem_bitwise_share": stem_same}
+    for splits in (1, 3):
+        rows = bench.run(images=200, splits=splits, dtype="bfloat16", reps=10, device=dev,
+                         log=lambda m: log(f"[t1] {m}"))
+        for r in rows:
+            assert r["rel_diff"] < 1e-2, (r["block"], r["rel_diff"])
+        tot = {k: sum(r[k] for r in rows) for k in ("t1_ms", "cudnn_ms", "plain_ms",
+                                                      "bound_ms")}
+        out[f"{splits}x200"] = {
+            "ms": tot["t1_ms"], "plain_ms": tot["plain_ms"], "library_ms": tot["cudnn_ms"],
+            "bound_ms": tot["bound_ms"],
             "blocks": {r["block"]: {k: r[k] for k in ("t1_ms", "cudnn_ms", "plain_ms",
-                                                      "bound_ms")} for r in rows}}
+                                                      "bound_ms", "launch_ms")}
+                       for r in rows}}
+    return out
 
 
 # -- phase 10 -----------------------------------------------------------------
@@ -1113,13 +1246,14 @@ def main() -> int:
                "roll.cu")
     t0 = time.perf_counter()
     _build.build(sources)
-    k1._ENTRY.load(), k2._ENTRY.load(), k3._ENTRY.load(), t1._library(), t2._ENTRY.load()
+    k1._ENTRY.load(), k2._ENTRY.load(), k3._ENTRY.load(), t1._ENTRY.load(), t2._ENTRY.load()
     log(f"[build] K1, K2, K3, T1, T2 ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source)")
     for src in sources:
         for line in ptxas_summary(_build.BUILD_LOG.get(src, "")):
             log(f"[build] {src}: {line}")
 
+    cuda_tests = phase_cuda_tests()
     max_err = phase_k1(dev)
     launches = phase_broker(dev)
     rounds = phase_rounds(dev)
@@ -1157,7 +1291,7 @@ def main() -> int:
         "ms": level["ms"], "plain_ms": level["plain_ms"],
         "bound_ms": level["bound_ms"], "bound_by": level["bound_by"], "library_ms": None,
         "shape": "400 pairs 128x128, d=6, 2 warps x 10 iters, warped+separable",
-        **level["plan"], "levels": level["levels"],
+        "plan": level["plan"], "levels": level["levels"],
         "batch_flow_ms": ext["flow_ms"], "batch_flow_plain_ms": ext["flow_plain_ms"],
         "batch_ms": ext["step_ms"], "clip_bytes_equal_cpu": ext["same"],
         "bf16_batch_trace": ext["bf16_batch_trace"],
@@ -1172,18 +1306,32 @@ def main() -> int:
         "full_mode_library_call": "F.grid_sample, bilinear, border padding",
         "host_us_48x64": warp["host_us"],
     }, {
-        "name": "T1 fused stride-1 Inception block (5 implicit-GEMM launches per call)",
+        "name": "T1 fused stride-1 Inception block (bf16: an x-tile and two 3x3 wgmma "
+                "implicit-GEMM launches per call)",
         "route": "cuda", "source": T1_SOURCE, "replaces": T1_REPLACES,
-        "launches": block["launches"], "max_abs_err": block["err"],
-        "ms": block["ms"], "plain_ms": block["plain_ms"],
-        "bound_ms": block["bound_ms"], "bound_by": "operations",
-        "library_ms": block["library_ms"],
-        "library_call": "the port's unfused block: a chain of cuDNN convs, pools and a concat",
-        "shape": "the 8 stride-1 blocks, 3 members x 200 images bf16, summed",
-        "blocks_ms": block["blocks"], "bf16_share_within_1ulp": block["bf16_share"],
-        "bf16_max_rel_err": block["bf16_rel"],
+        "launches": ext["launches"]["T1"], "max_abs_err": block["err"],
+        "ms": block["1x200"]["ms"], "plain_ms": block["1x200"]["plain_ms"],
+        "bound_ms": block["1x200"]["bound_ms"], "bound_by": "operations",
+        "library_ms": block["1x200"]["library_ms"],
+        "library_call": "the same block as a bare chain of cuDNN bf16 calls (conv with "
+                        "bias, ReLU, pool, concat), channels-last",
+        "shape": "the 8 stride-1 blocks, 1 member x 200 images bf16 (the extraction "
+                 "path's call), summed",
+        "blocks_ms": block["1x200"]["blocks"],
+        "table_shape": dict(shape="the 8 stride-1 blocks, 3 members x 200 images bf16, "
+                                  "x shared, summed",
+                            **{k: v for k, v in block["3x200"].items() if k != "blocks"}),
+        "table_blocks_ms": block["3x200"]["blocks"],
+        "device_launches_per_call": block["device_launches_bf16"],
+        "launches_per_bf16_batch": ext["t1_launches_per_bf16_batch"],
+        "bf16_share_within_1ulp": block["bf16_share"], "bf16_max_rel_err": block["bf16_rel"],
+        "stem_conv_bitwise_share": block["stem_bitwise_share"],
         "extract_batch_bf16_ms": ext["step_bf16_ms"],
+        "extract_batch_bf16_again_ms": ext["step_bf16_again_ms"],
+        "extract_batch_bf16_unfused_ms": ext["step_bf16_unfused_ms"],
         "extract_bf16_criterion": ext["bf16_criterion"],
+        "rgb_nets_trace": ext["rgb_nets_trace"],
+        "cuda_tests_passed": cuda_tests,
     }, {
         "name": "T2 roll by a shift read from device memory",
         "route": "cuda", "source": T2_SOURCE, "replaces": T2_REPLACES,

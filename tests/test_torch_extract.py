@@ -252,11 +252,15 @@ def test_extractor_refuses_what_is_not_ported():
 
 
 def test_extraction_imports_without_jax():
-    """Importing every module of the port loads neither jax nor any module
-    of the JAX package (videoquery.*) nor the repository's tools/."""
-    code = ("import sys, pkgutil, importlib, videoquery_torch\n"
+    """Importing every module of the port, and the module of the `cuda`
+    tests that runs on the card without jax, loads neither jax nor any
+    module of the JAX package (videoquery.*) nor the repository's tools/."""
+    code = ("import sys, pkgutil, importlib, importlib.util, videoquery_torch\n"
             "for m in pkgutil.walk_packages(videoquery_torch.__path__, 'videoquery_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "spec = importlib.util.spec_from_file_location(\n"
+            "    'cuda_tests', 'tests/test_torch_cuda_kernels.py')\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'videoquery' or m.startswith('videoquery.')\n"
             "       or m == 'tools' or m.startswith('tools.')]\n"
@@ -282,10 +286,12 @@ def imported_modules(path: str) -> set[str]:
     return out
 
 
-@pytest.mark.parametrize("where", ["chip_smoke.py", "videoquery_torch"])
+@pytest.mark.parametrize("where", ["chip_smoke.py", "videoquery_torch",
+                                   "tests/test_torch_cuda_kernels.py"])
 def test_port_sources_import_nothing_of_the_jax_package(where):
-    """No import statement in chip_smoke.py or any module of the port names
-    jax, the JAX package (videoquery.*) or the repository's tools/."""
+    """No import statement in chip_smoke.py, any module of the port or the
+    module of the `cuda` tests names jax, the JAX package (videoquery.*) or
+    the repository's tools/."""
     root = os.path.join(REPO, where)
     files = ([root] if root.endswith(".py")
              else glob.glob(os.path.join(root, "**", "*.py"), recursive=True))

@@ -11,7 +11,8 @@ the stacked-member form (3 members with different weights) against the JAX
 differs); bf16 against the TPU kernel in bf16 (both round r3, rd, d1 and the
 output to bf16 at the same places): >= 99% of outputs within one bf16 ulp,
 max |diff| <= 1/64 of the largest output. The CUDA kernel is held against
-the plain version by the `cuda` tests and by chip_smoke.py.
+the plain version by the `cuda` tests in tests/test_torch_cuda_kernels.py
+and by chip_smoke.py.
 """
 
 import jax
@@ -167,26 +168,3 @@ def test_wrapper_rejects_bad_operands(case):
         p = t1.block_weights(p, name, spec, torch.bfloat16, "cpu")
     with pytest.raises(ValueError):
         t1.fused_inception(p, name, spec, x)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain_version(dtype):
-    """T1 against its plain version on the card at 3a's and 5b's shapes,
-    3 members, 3 images; one launch per call."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; T1 has no CPU or interpret mode")
-    torch.backends.cudnn.allow_tf32 = False
-    for name, cin, hw in CASES:
-        spec = dict(jbi.INCEPTION_BLOCKS)[name]
-        wts = t1.block_weights(block_params(name, cin, members=3), name, spec, dtype, "cuda")
-        x = torch.from_numpy(relu_input(hw, cin, n=3)).cuda().to(dtype)
-        launches = t1.LAUNCHES
-        got = t1.fused_inception(wts, name, spec, x)
-        assert t1.LAUNCHES == launches + 1
-        want = t1.fused_inception_reference(wts, name, spec, x)
-        if dtype == torch.float32:
-            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
-        else:
-            share, rel = bf16_agreement(got.float().cpu().numpy(), want.float().cpu().numpy())
-            assert share >= 0.99 and rel <= 1 / 64, (share, rel)

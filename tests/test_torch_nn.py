@@ -149,18 +149,23 @@ def test_bn_inception_bf16_matches_jax_bf16(cin):
 
 
 def test_bf16_weights_are_cast_once():
-    """The bf16 copies of the weights are made at the first bf16 forward
-    and reused; the f32 path uses the parameters themselves."""
+    """The bf16 roundings of the weights (held as f32 for the widened convs)
+    and T1's block weights are made at the first bf16 forward and reused;
+    the f32 path uses the parameters themselves."""
     net = tb.BNInception(jb.init_params(2, 3))
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 32, 32, 3)).astype(np.float32))
     net(x)
-    assert net._cast == {}
+    assert net._cast == {} and net._blocks == {}
     net(x.to(torch.bfloat16))
-    cast = net._cast[(torch.bfloat16, torch.device("cpu"))]
-    w = cast["conv1__7x7_s2"]
-    assert w.dtype == torch.bfloat16
+    key = (torch.bfloat16, torch.device("cpu"))
+    w = net._cast[key]["conv1__7x7_s2"]
+    assert w.dtype == torch.float32
+    assert torch.equal(w, net.weights["conv1__7x7_s2"].detach().to(torch.bfloat16).float())
+    blocks = net._blocks[key]
+    assert len(blocks) == 8 and blocks["inception_3a"].w1.dtype == torch.bfloat16
+    bw = blocks["inception_3a"]
     net(x.to(torch.bfloat16))
-    assert net._cast[(torch.bfloat16, torch.device("cpu"))]["conv1__7x7_s2"] is w
+    assert net._cast[key]["conv1__7x7_s2"] is w and net._blocks[key]["inception_3a"] is bw
 
 
 def test_tsn_constructors_default_to_the_card(monkeypatch):

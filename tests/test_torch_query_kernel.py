@@ -6,7 +6,8 @@ runs it) and against the JAX engine's batched similarity, on the same
 inputs made with numpy. Tolerance rtol 1e-5 / atol 1e-6 (tests/test_pallas.py:
 the products are exact, only the order of the sums differs); counts and
 top-k ids are equal exactly. The CUDA kernel itself is held against the
-plain version by the `cuda` test at the end and by chip_smoke.py.
+plain version by the `cuda` test in tests/test_torch_cuda_kernels.py and by
+chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -213,35 +214,3 @@ def test_wrapper_rejects_unknown_target_dtype():
     f, m, t, tm, _ = as_torch(make_inputs(), torch.float32)
     with pytest.raises(ValueError):
         k1.query_k1(f, m, t, tm, target_dtype=torch.float16)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,target", [("f32", "f32"), ("bf16", "f32"), ("bf16", "bf16")])
-def test_cuda_kernel_matches_plain_version(dtype, target):
-    """The CUDA kernel against its plain version on the card, a ragged N,
-    both epilogues, each index type with each of its target types (bf16:
-    the tensor-core body, one or three bf16 terms a target); query 0
-    bitwise equal alone and inside Q = 2, 3, 8 and 16."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; K1 has no CPU or interpret mode")
-    _, fdt = DTYPES[dtype]
-    _, tdt = DTYPES[target]
-    x = make_inputs(seed=5, q=16)
-    f, m, t, tm, w = (a.cuda() for a in as_torch(x, fdt))
-    f, m = f[:, :, :250].contiguous(), m[:, :, :250].contiguous()
-    launches = k1.LAUNCHES
-    avg, cnt = k1.query_k1(f, m, t, tm, target_dtype=tdt)
-    sc = k1.query_k1(f, m, t, tm, w, target_dtype=tdt)
-    assert k1.LAUNCHES == launches + 2
-    avg_r, cnt_r = k1.query_k1_reference(f, m, t, tm, target_dtype=tdt)
-    sc_r = k1.query_k1_reference(f, m, t, tm, w, target_dtype=tdt)
-    assert torch.equal(cnt, cnt_r)
-    torch.testing.assert_close(avg, avg_r, rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(sc, sc_r, rtol=RTOL, atol=ATOL)
-    a1, c1 = k1.query_k1(f, m, t[:1], tm[:1], target_dtype=tdt)
-    s1 = k1.query_k1(f, m, t[:1], tm[:1], w[:1], target_dtype=tdt)
-    for qb in (2, 3, 8, 16):
-        ab, cb = k1.query_k1(f, m, t[:qb], tm[:qb], target_dtype=tdt)
-        sb = k1.query_k1(f, m, t[:qb], tm[:qb], w[:qb], target_dtype=tdt)
-        assert torch.equal(a1[0], ab[0]) and torch.equal(c1[0], cb[0]), qb
-        assert torch.equal(s1[0], sb[0]), qb

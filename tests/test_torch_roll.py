@@ -6,7 +6,8 @@ against the repro's own Pallas kernel (``tools.mosaic_roll_repro.make_kernel``:
 interpret mode, on the repro's seeded [1, 80, 256] tile: axis 0 and 1, both
 signs, shifts 1, 5 and 8, and shifts beyond the axis length. Equality is
 exact: a roll moves values and rounds nothing. The CUDA kernel is held
-against torch.roll by the `cuda` test and by chip_smoke.py (the repro tool,
+against torch.roll by the `cuda` test in tests/test_torch_cuda_kernels.py
+and by chip_smoke.py (the repro tool,
 12 cases, each error 0).
 """
 
@@ -85,18 +86,3 @@ def test_wrapper_rejects_bad_operands(case):
         axis = 2
     with pytest.raises(ValueError):
         t2.roll(x, shift, axis)
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_torch_roll():
-    """T2 on the card with the shift in device memory, both axes and signs
-    and a shift beyond the axis length; one launch per call."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; T2 has no CPU or interpret mode")
-    x = torch.from_numpy(tile()).repeat(3, 1, 1).cuda()
-    for axis in (0, 1):
-        for s in (-8, -1, 5, 300):
-            launches = t2.LAUNCHES
-            got = t2.roll(x, torch.tensor([s], dtype=torch.int32, device="cuda"), axis)
-            assert t2.LAUNCHES == launches + 1
-            assert torch.equal(got, torch.roll(x, s, axis + 1))

@@ -15,7 +15,8 @@ CPU contracts the warp's multiply-adds into FMAs, the port rounds the
 product and the sum as written (as the CUDA kernel does), and the one-ulp
 difference of the warped image is multiplied by rgrad = 1 / max(|grad|^2,
 1e-6) in flat regions. The CUDA kernel itself is held against the plain
-version by the `cuda` test and by chip_smoke.py (bitwise equal there).
+version by the `cuda` test in tests/test_torch_cuda_kernels.py and by
+chip_smoke.py (bitwise equal there).
 
 The plan (``level_plan``: route, band rows, cluster size, shared bytes,
 device launches a call) is plain Python and is tested here on the CPU.
@@ -33,7 +34,6 @@ from jax.experimental.pallas import tpu as pltpu
 from videoquery.kernels.tvl1 import TVL1Params as JaxTVL1Params
 from videoquery.kernels.tvl1_pallas import tvl1_level_pallas
 from videoquery.pipeline.extract import PRODUCTION_TVL1 as JAX_PRODUCTION
-from videoquery_torch.kernels import _launch
 from videoquery_torch.kernels import tvl1_level as k2
 from videoquery_torch.kernels.tvl1 import TVL1Params
 from videoquery_torch.kernels.window_warp import PaddedGeometry
@@ -187,35 +187,3 @@ def test_level_plan(case):
         assert plan.scratch_floats(k2.MODE_WARPED) == n * g.hp * (17 * g.wp + g.ww)
         for mode, per_warp in mode_launches.items():
             assert plan.device_launches(mode, 2, 10) == 3 + 2 * per_warp + 20
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(30, 64, 3, 4), (20, 100, 3, 4), (8, 64, 3, 4),
-                                   (64, 64, 3, 4), (128, 128, 6, 4), (128, 128, 12, 2),
-                                   (256, 384, 6, 2)])
-@pytest.mark.parametrize("mode", sorted(MODES))
-def test_cuda_kernel_matches_plain_version(mode, shape):
-    """K2 against its plain version on the card, bit for bit (the same
-    operations in the same order, built without FMA contraction or fast
-    math): a wrapping width with a ragged height, a ragged last band, a
-    height below one band, bands in clusters of 4 and 8, the rescue window
-    and a wide grid on the tiles route. One C call a level; one device
-    launch on the band route. In mode 1 the band kernel needs a block
-    barrier between the warp step and the primal half-step: the separable
-    pass reads v up to d columns away, across warps, and the half-step
-    overwrites it; a missing barrier need not show here, as it depends on
-    how the warps are scheduled."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; K2 has no CPU or interpret mode")
-    h, w, d, n = shape
-    p = TVL1Params(n_scales=1, n_warps=2, n_iters=8, **MODES[mode])
-    args = [torch.from_numpy(a).cuda() for a in make_pair(h, w, n=n, flow=d / 2)]
-    launches = k2.LAUNCHES
-    u, v = k2.tvl1_level(*args, p, d)
-    assert k2.LAUNCHES == launches + 1
-    ur, vr = k2.tvl1_level_reference(*args, p, d)
-    assert torch.equal(u, ur) and torch.equal(v, vr)
-    plan = k2.level_plan(n, h, w, d)
-    want = plan.device_launches(k2.warp_mode(p), p.n_warps, p.n_iters)
-    assert want == 1 or plan.route == "tiles"
-    assert _launch.device_launches(lambda: k2.tvl1_level(*args, p, d)) == want

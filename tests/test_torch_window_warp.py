@@ -8,8 +8,8 @@ largest: it must be reproduced, not replaced by exact bilinear) and smooth
 flow, widths 64, 100 and 128 (one padded to 128 lanes, one ragged) and a
 ragged height. Tolerance rtol 1e-5 / atol 1e-6: the same two-tap sums, so
 only the contraction of a product into a sum may differ. The CUDA kernel
-itself is held against the plain version by the `cuda` test and by
-chip_smoke.py.
+itself is held against the plain version by the `cuda` test in
+tests/test_torch_cuda_kernels.py and by chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -88,21 +88,3 @@ def test_wrapper_rejects_bad_operands(case):
         d = 0
     with pytest.raises(ValueError):
         k3.window_warp(img, u, v, d)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(30, 100), (30, 101)])
-@pytest.mark.parametrize("separable", [True, False])
-def test_cuda_kernel_matches_plain_version(separable, hw):
-    """K3 against its plain version on the card, rough flow: a width that is
-    a multiple of 4 (four pixels a thread, 16-byte loads and stores) and a
-    ragged one (a pixel a thread), both with a ragged height; one launch per
-    call."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; K3 has no CPU or interpret mode")
-    img, u, v = (torch.from_numpy(a).cuda() for a in make_case(*hw, 4, True, n=5))
-    launches = k3.LAUNCHES
-    got = k3.window_warp(img, u, v, 4, separable)
-    assert k3.LAUNCHES == launches + 1
-    want = k3.window_warp_reference(img, u, v, 4, separable)
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)

@@ -18,17 +18,17 @@ Precondition: x >= 0. Every block input is a concat of ReLU outputs and
 pools of them, and the kernel's MAX pool pads with zeros where Caffe pads
 with -inf; the two agree only on such inputs.
 
-A CUDA tensor launches the kernel (one C call of five launches, counted
-once in ``LAUNCHES``), or raises; a CPU tensor takes the plain PyTorch
-version beside it (``fused_inception_reference``: F.conv2d in f32, the
-port's Caffe pooling and torch.cat). No stride-2 block and no block without
-a pool projection (BN-Inception's stride-1 blocks all have one) runs on the
-kernel.
+A CUDA tensor launches the kernel, or raises: one C call (counted once in
+``LAUNCHES``) of three device launches in bf16 (the x-tile GEMMs with the
+pool, then the 3x3 convs) or five in f32, through ``kernels/_launch.py``. A
+CPU tensor takes the plain PyTorch version beside it
+(``fused_inception_reference``: F.conv2d in f32, the port's Caffe pooling
+and torch.cat). No stride-2 block and no block without a pool projection
+(BN-Inception's stride-1 blocks all have one) runs on the kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Mapping
 
@@ -36,12 +36,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from videoquery_torch.nn.bn_inception import avg_pool, max_pool
+from videoquery_torch.kernels import _launch
+from videoquery_torch.nn import bn_inception as bi
 
 # kernel launches (C calls) since import (or since a caller reset it)
 LAUNCHES = 0
 
-_SOURCE = "inception_block.cu"
+# x, bf16, n, h, w, cin, members, c1, r3, c3, rd, d1, d2, pp, pool_max, 10
+# weight and bias pointers, red, dd1, out (the stream follows)
+_ENTRY = _launch.Entry("inception_block.cu", "vq_inception_block", 28)
+DEVICE_LAUNCHES = {torch.bfloat16: 3, torch.float32: 5}
 
 
 @dataclasses.dataclass
@@ -68,43 +72,44 @@ class BlockWeights:
         return self.w1.shape[0]
 
 
-def _gemm_layout(w: np.ndarray) -> np.ndarray:
+def _gemm_layout(w: torch.Tensor) -> torch.Tensor:
     """HWIO [K, kh, kw, cin, cout] -> [K, cout, kh * kw * cin]."""
     k, kh, kw, cin, cout = w.shape
-    return np.ascontiguousarray(w.transpose(0, 4, 1, 2, 3).reshape(k, cout, kh * kw * cin))
+    return w.permute(0, 4, 1, 2, 3).reshape(k, cout, kh * kw * cin)
+
+
+def _f32(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().float()
+    return torch.from_numpy(np.asarray(a, np.float32))
 
 
 def block_weights(params: Mapping, name: str, spec: Mapping, dtype: torch.dtype,
                   device) -> BlockWeights:
     """The block's parameters ({"{name}/{layer}": {"w": HWIO [K?, kh, kw,
-    cin, cout], "b": [K?, cout]}}) in the kernel's layout on ``device``;
-    weights in ``dtype`` (rounded to nearest even from f32), biases f32."""
-    first = np.asarray(params[f"{name}/3x3"]["w"])
-    stacked = first.ndim == 5
+    cin, cout], "b": [K?, cout]}} of numpy, JAX or torch arrays) in the
+    kernel's layout on ``device``; weights in ``dtype`` (rounded to nearest
+    even from f32), biases f32."""
+    stacked = _f32(params[f"{name}/3x3"]["w"]).dim() == 5
 
     def wb(layer):
         p = params[f"{name}/{layer}"]
-        w = np.asarray(p["w"]).astype(np.float32)
-        b = np.asarray(p["b"]).astype(np.float32)
+        w, b = _f32(p["w"]).to(device), _f32(p["b"]).to(device)
         if not stacked:
             w, b = w[None], b[None]
         return _gemm_layout(w), b
 
-    def dev(a, dt):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
-
     reads_x = (["1x1"] if spec["c1"] else []) + ["3x3_reduce", "double_3x3_reduce"]
     pairs = [wb(layer) for layer in reads_x]
-    w1 = np.concatenate([w for w, _ in pairs], axis=1)
-    b1 = np.concatenate([b for _, b in pairs], axis=1)
-    out = {"w1": dev(w1, dtype), "b1": dev(b1, torch.float32)}
+    out = {"w1": torch.cat([w for w, _ in pairs], dim=1).to(dtype).contiguous(),
+           "b1": torch.cat([b for _, b in pairs], dim=1).contiguous()}
     for key, layer in (("3", "3x3"), ("d1", "double_3x3_1"), ("d2", "double_3x3_2")):
         w, b = wb(layer)
-        out[f"w{key}"], out[f"b{key}"] = dev(w, dtype), dev(b, torch.float32)
+        out[f"w{key}"], out[f"b{key}"] = w.to(dtype).contiguous(), b.contiguous()
     out["wpp"] = out["bpp"] = None
     if spec["pp"]:
         w, b = wb("pool_proj")
-        out["wpp"], out["bpp"] = dev(w, dtype), dev(b, torch.float32)
+        out["wpp"], out["bpp"] = w.to(dtype).contiguous(), b.contiguous()
     return BlockWeights(stacked=stacked, **out)
 
 
@@ -143,9 +148,9 @@ def fused_inception_reference(params, name: str, spec: Mapping,
         return torch.relu(y).to(dt)
 
     if spec["pool"] == "ave":
-        pool = avg_pool(xf, 3, 1, 1).to(dt)                 # f32 sum, /9, cast
+        pool = bi.avg_pool(xf, 3, 1, 1).to(dt)              # f32 sum, /9, cast
     else:
-        pool = max_pool(x.permute(0, 3, 1, 2), 3, 1, 1)      # exact in any type
+        pool = bi.max_pool(x.permute(0, 3, 1, 2), 3, 1, 1)   # exact in any type
     outs = []
     for m in range(wts.members):
         w1, b1 = wts.w1[m], wts.b1[m]
@@ -165,24 +170,6 @@ def fused_inception_reference(params, name: str, spec: Mapping,
 
 
 # -- the kernel ---------------------------------------------------------------
-
-_lib: ctypes.CDLL | None = None
-
-
-def _library() -> ctypes.CDLL:
-    """The built T1 library with its C signature declared (built at the
-    first launch, never at import)."""
-    global _lib
-    if _lib is None:
-        from videoquery_torch.kernels import _build
-
-        lib = _build.load(_SOURCE)
-        lib.vq_inception_block.restype = ctypes.c_int
-        lib.vq_inception_block.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 14
-                                           + [ctypes.c_void_p] * 14)
-        _lib = lib
-    return _lib
-
 
 def fused_inception(params, name: str, spec: Mapping, x: torch.Tensor) -> torch.Tensor:
     """One stride-1 inception block of NHWC x (>= 0; f32 or bf16), fused:
@@ -213,18 +200,20 @@ def fused_inception(params, name: str, spec: Mapping, x: torch.Tensor) -> torch.
     cout = c1 + c3 + d2 + pp
     if k * p * max(cout, r3 + rd, cin) >= 2 ** 31:
         raise ValueError("T1 takes fewer than 2**31 elements per operand")
+    rows = p
+    if x.dtype == torch.bfloat16:
+        # the 3x3 convs read r3, rd and d1 zero-bordered: [N, H + 2, W + 2]
+        rows = n * (h + 2) * (w + 2)
+        if any(c % 32 for c in (r3, rd, d1)) or rows > 65535 * 256 or w > 128:
+            raise ValueError(f"{name}: T1's bf16 body takes r3, rd and d1 in multiples "
+                             "of 32, at most 65535 * 256 padded pixels and rows of at "
+                             "most 128 pixels (the halos in shared memory)")
     out = torch.empty((k, n, h, w, cout), dtype=x.dtype, device=x.device)
-    red = torch.empty((k, p, r3 + rd), dtype=x.dtype, device=x.device)
-    dd1 = torch.empty((k, p, d1), dtype=x.dtype, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.vq_inception_block(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), n, h, w, cin, k,
-            c1, r3, c3, rd, d1, d2, pp, int(spec["pool"] == "max"),
-            *(t.data_ptr() for t in tensors[1:]),
-            red.data_ptr(), dd1.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"T1 launch failed: CUDA error {err}")
+    red = torch.empty((k, rows, r3 + rd), dtype=x.dtype, device=x.device)
+    dd1 = torch.empty((k, rows, d1), dtype=x.dtype, device=x.device)
+    _launch.launch(_ENTRY, "T1", x.get_device(), x.data_ptr(), int(x.dtype == torch.bfloat16),
+                   n, h, w, cin, k, c1, r3, c3, rd, d1, d2, pp, int(spec["pool"] == "max"),
+                   *(t.data_ptr() for t in tensors[1:]), red.data_ptr(), dd1.data_ptr(),
+                   out.data_ptr())
     LAUNCHES += 1
     return out if wts.stacked else out[0]

@@ -11,13 +11,19 @@ divisor of an overhanging window instead). ``conv1`` is a plain 7x7/s2 conv
 maths). Inputs are NHWC at the public functions, as in the JAX package.
 
 The net runs in the dtype of its input, float32 or bfloat16, as the JAX
-``apply`` does: each conv reads activations and weights in that type and
-accumulates in float32 (cuDNN's bf16 convolution), the float32 bias is
-added, then ReLU, then the result is cast back. cuDNN hands a bf16 conv's
-sum back rounded to bf16 before the bias is added, so with a non-zero bias
-a bf16 output may be rounded twice where the JAX package rounds once.
-Average pooling works in the activation type; ``global_pool`` is a float32
-mean. Weights are cast to a working type once, at its first use.
+``apply`` does: each conv reads activations and weights in that type, sums
+their products in float32, adds the float32 bias, applies ReLU and rounds
+the result once to that type. In bfloat16 the stem and the stride-2 blocks
+run ``F.conv2d`` on the bf16 values widened to float32 with the bias inside
+the call (exact products, float32 sums; on the card TF32 is allowed for the
+forward, which holds a bf16 value exactly), and every stride-1 block is one
+call of the fused kernel T1 (``kernels/inception_block.py::fused_inception``:
+on the card the CUDA kernel, on the CPU its plain version). Activations stay
+channels-last, so a block's NHWC view is contiguous and T1's output is the
+next layer's input without a copy. Average pooling outside T1 works in the
+activation type; ``global_pool`` is a float32 mean. Weights are cast to a
+working type once, at its first use, and T1's block weights are laid out
+once per (dtype, device).
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from videoquery_torch.kernels import inception_block as t1
 
 # Inception block channel spec (reference prototxt; see the JAX module).
 INCEPTION_BLOCKS: tuple[tuple[str, dict], ...] = (
@@ -146,9 +154,11 @@ class BNInception(nn.Module):
             np.asarray(params["fc-action"]["w"], np.float32).copy()), requires_grad=False)
         self.fc_b = nn.Parameter(torch.from_numpy(
             np.asarray(params["fc-action"]["b"], np.float32).copy()), requires_grad=False)
-        # conv weights cast to a working type other than float32, by
-        # (dtype, device); filled at the first forward in that type
+        # conv weights rounded to a working type other than float32 and held
+        # as float32, by (dtype, device); filled at the first forward in that type
         self._cast: dict[tuple, dict[str, torch.Tensor]] = {}
+        # T1's weights of each stride-1 block, by (dtype, device)
+        self._blocks: dict[tuple, dict[str, t1.BlockWeights]] = {}
 
     def _weight(self, key: str, dtype: torch.dtype) -> torch.Tensor:
         w = self.weights[key]
@@ -157,8 +167,20 @@ class BNInception(nn.Module):
         cast = self._cast.get((dtype, w.device))
         if cast is None:
             cast = self._cast[(dtype, w.device)] = {
-                k: v.detach().to(dtype) for k, v in self.weights.items()}
+                k: v.detach().to(dtype).float() for k, v in self.weights.items()}
         return cast[key]
+
+    def _block_weights(self, name: str, spec: dict, x: torch.Tensor) -> t1.BlockWeights:
+        blocks = self._blocks.setdefault((x.dtype, x.device), {})
+        if name not in blocks:
+            params = {}
+            for key in self.weights:
+                if key.startswith(name + "__"):
+                    params[key.replace("__", "/")] = {
+                        "w": self.weights[key].permute(2, 3, 1, 0),    # OIHW -> HWIO
+                        "b": self.biases[key]}
+            blocks[name] = t1.block_weights(params, name, spec, x.dtype, x.device)
+        return blocks[name]
 
     def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
         k, pad, s = self.specs[name]
@@ -166,10 +188,22 @@ class BNInception(nn.Module):
         w, b = self._weight(key, x.dtype), self.biases[key]
         if x.dtype == torch.float32:
             return F.relu(F.conv2d(x, w, b, stride=s, padding=pad), inplace=True)
-        y = F.conv2d(x, w, stride=s, padding=pad)      # f32 sums, cast
-        return y.float().add_(b[:, None, None]).relu_().to(x.dtype)
+        # exact products of the bf16 values, f32 sums and bias, one rounding;
+        # the widened copy is channels-last, so every later activation is
+        y = F.conv2d(x.to(torch.float32, memory_format=torch.channels_last), w, b,
+                     stride=s, padding=pad)
+        return y.relu_().to(x.dtype)
 
     def _inception(self, name: str, b: dict, x: torch.Tensor) -> torch.Tensor:
+        if b["stride"] == 1 and x.dtype != torch.float32:
+            y = t1.fused_inception(self._block_weights(name, b, x), name, b,
+                                   x.permute(0, 2, 3, 1))
+            return y.permute(0, 3, 1, 2)
+        return self._inception_unfused(name, b, x)
+
+    def _inception_unfused(self, name: str, b: dict, x: torch.Tensor) -> torch.Tensor:
+        """The block as one ``_conv`` a branch, the pools and a concat: every
+        f32 block and the stride-2 ones (bf16 stride-1 blocks run T1)."""
         branches = []
         if b["c1"]:
             branches.append(self._conv(f"{name}/1x1", x))
@@ -188,6 +222,18 @@ class BNInception(nn.Module):
         return torch.cat(branches, dim=1)
 
     def forward(self, x: torch.Tensor, head: bool = True) -> dict[str, torch.Tensor]:
+        if x.dtype == torch.float32 or not x.is_cuda:
+            return self._forward(x, head)
+        # bf16 on the card: TF32 for the widened stem and stride-2 convs
+        # (a bf16 value is exact in TF32); the f32 networks keep it off
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return self._forward(x, head)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+
+    def _forward(self, x: torch.Tensor, head: bool) -> dict[str, torch.Tensor]:
         y = x.permute(0, 3, 1, 2)                  # NHWC -> NCHW
         y = self._conv("conv1/7x7_s2", y)
         y = max_pool(y, 3, 2, 0)
