@@ -24,6 +24,10 @@ biases (BN-folded weights have them; ``init_params`` draws zeros).
    rounded once, and within 1/64 of the largest output to the JAX block.
 4. A forward in bf16 calls ``fused_inception`` once per stride-1 block (8);
    one in f32 never.
+5. ``tools/conv_rounding.py``, which holds each of the 13 convs outside T1
+   against the f32 conv rounded once at the inputs a bf16 forward gives it
+   (on the card, where cuDNN picks an algorithm per shape under TF32), runs
+   here on the CPU at 64 px and finds each bit-equal on >= 99.9%.
 """
 
 import jax
@@ -35,6 +39,8 @@ import torch
 from videoquery.nn import bn_inception as jb
 from videoquery_torch.kernels import inception_block as t1
 from videoquery_torch.nn import bn_inception as tb
+from videoquery_torch.tools import conv_rounding
+from videoquery_torch.tools.inception_block_bench import with_biases
 
 # tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
 # from starving the timing tests that share the machine
@@ -43,14 +49,6 @@ torch.set_num_threads(2)
 BITWISE_SHARE = 0.999
 BLOCK_SHARE = 0.998
 NET_VS_JAX = 0.02
-
-
-def with_bias(params, seed):
-    """``params`` with every bias redrawn ~N(0, 0.3), seeded."""
-    rng = np.random.default_rng(seed)
-    return {k: {"w": np.asarray(v["w"], np.float32),
-                "b": (rng.normal(size=np.shape(v["b"])) * 0.3).astype(np.float32)}
-            for k, v in params.items()}
 
 
 def as_jax(params):
@@ -70,7 +68,7 @@ def bf16_pair(x: np.ndarray):
     ("inception_4e/3x3", 3, 1, 2, 14),
 ])
 def test_bf16_conv_rounds_once(name, k, pad, stride, hw):
-    params = with_bias(tb.init_params(1, 3), 7)
+    params = with_biases(tb.init_params(1, 3), 7)
     cin = params[name]["w"].shape[2]
     rng = np.random.default_rng(hw + k)
     x = (rng.normal(size=(2, hw, hw, cin)) * 30 if cin == 3
@@ -91,7 +89,7 @@ def mean_rel(got, want) -> float:
 
 @pytest.mark.parametrize("cin", [3, 10])
 def test_bf16_net_with_biases_matches_jax(cin):
-    params = with_bias(tb.init_params(1, cin), cin)
+    params = with_biases(tb.init_params(1, cin), cin)
     x = np.random.default_rng(cin).normal(size=(2, 64, 64, cin)).astype(np.float32) * 30
     want = jb.forward(as_jax(params), jnp.asarray(x, jnp.bfloat16))
     got = tb.BNInception(params)(torch.from_numpy(x).to(torch.bfloat16))
@@ -104,7 +102,7 @@ def test_bf16_net_with_biases_matches_jax(cin):
                                          ("inception_5b", 7, 1024)])
 def test_bf16_block_route_matches_jax_block(name, hw, cin):
     spec = dict(jb.INCEPTION_BLOCKS)[name]
-    params = with_bias(tb.init_params(1, 3), 5)
+    params = with_biases(tb.init_params(1, 3), 5)
     x = np.maximum(np.random.default_rng(1).normal(size=(3, hw, hw, cin)) * 0.5, 0)
     xb, xt = bf16_pair(x.astype(np.float32))
     jp = as_jax(params)
@@ -149,3 +147,13 @@ def test_bf16_forward_runs_every_stride1_block_through_t1(monkeypatch):
     net(strided)
     assert len(calls) == 16
     assert all(dt == torch.bfloat16 and contiguous for _, dt, contiguous in calls)
+
+
+def test_conv_rounding_tool_checks_every_conv_outside_t1():
+    names = conv_rounding.convs_outside_t1()
+    assert names[:3] == ["conv1/7x7_s2", "conv2/3x3_reduce", "conv2/3x3"] and len(names) == 13
+    assert {n.split("/")[0] for n in names[3:]} == {"inception_3c", "inception_4e"}
+    seen = []
+    shares = conv_rounding.run(images=2, size=64, device="cpu", log=seen.append)
+    assert list(shares) == names and len(seen) == 13
+    assert min(shares.values()) >= conv_rounding.BITWISE_SHARE, shares

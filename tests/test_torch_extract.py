@@ -253,11 +253,13 @@ def test_extractor_refuses_what_is_not_ported():
 
 def test_extraction_imports_without_jax():
     """Importing every module of the port, and the module of the `cuda`
-    tests that runs on the card without jax, loads neither jax nor any
+    tests that runs on the card without jax (with its inputs' module
+    ``tests/_torch_cases.py``), loads neither jax nor any
     module of the JAX package (videoquery.*) nor the repository's tools/."""
     code = ("import sys, pkgutil, importlib, importlib.util, videoquery_torch\n"
             "for m in pkgutil.walk_packages(videoquery_torch.__path__, 'videoquery_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "sys.path.insert(0, 'tests')   # as pytest puts it there for the module\n"
             "spec = importlib.util.spec_from_file_location(\n"
             "    'cuda_tests', 'tests/test_torch_cuda_kernels.py')\n"
             "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -266,6 +268,7 @@ def test_extraction_imports_without_jax():
             "       or m == 'tools' or m.startswith('tools.')]\n"
             "assert not bad, bad\n"
             "assert 'videoquery_torch.tools.inception_block_bench' in sys.modules\n"
+            "assert '_torch_cases' in sys.modules\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -287,10 +290,10 @@ def imported_modules(path: str) -> set[str]:
 
 
 @pytest.mark.parametrize("where", ["chip_smoke.py", "videoquery_torch",
-                                   "tests/test_torch_cuda_kernels.py"])
+                                   "tests/test_torch_cuda_kernels.py", "tests/_torch_cases.py"])
 def test_port_sources_import_nothing_of_the_jax_package(where):
-    """No import statement in chip_smoke.py, any module of the port or the
-    module of the `cuda` tests names jax, the JAX package (videoquery.*) or
+    """No import statement in chip_smoke.py, any module of the port, the
+    module of the `cuda` tests or its inputs' module names jax, the JAX package (videoquery.*) or
     the repository's tools/."""
     root = os.path.join(REPO, where)
     files = ([root] if root.endswith(".py")

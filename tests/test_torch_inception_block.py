@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_cases import block_params, relu_input
 from jax.experimental.pallas import tpu as pltpu
 
 from tools.inception_pallas import fused_inception as jax_fused
@@ -34,34 +35,6 @@ torch.set_num_threads(2)
 
 RTOL, ATOL = 1e-5, 1e-5
 CASES = [("inception_3a", 256, 28), ("inception_5b", 1024, 7)]
-
-
-def block_params(name, cin, seed=0, members=None):
-    """The block's parameters (numpy, JAX layout) as tests/test_pallas.py
-    draws them; with members, a stacked tree whose member m scales every
-    weight by 1 + 0.1 m."""
-    rng = np.random.default_rng(seed)
-    base = jbi.init_params(0, 3)
-    p = {}
-    for lyr in ("1x1", "3x3_reduce", "double_3x3_reduce", "pool_proj"):
-        key = f"{name}/{lyr}"
-        cout = base[key]["w"].shape[3]
-        p[key] = {"w": (rng.normal(size=(1, 1, cin, cout)) * 0.05).astype(np.float32),
-                  "b": (rng.normal(size=cout) * 0.01).astype(np.float32)}
-    for lyr in ("3x3", "double_3x3_1", "double_3x3_2"):
-        key = f"{name}/{lyr}"
-        p[key] = {"w": np.asarray(base[key]["w"]),
-                  "b": (rng.normal(size=base[key]["b"].shape) * 0.01).astype(np.float32)}
-    if members is None:
-        return p
-    return {k: {"w": np.stack([v["w"] * (1 + 0.1 * m) for m in range(members)]),
-                "b": np.stack([v["b"] * (1 + 0.1 * m) for m in range(members)])}
-            for k, v in p.items()}
-
-
-def relu_input(hw, cin, n=5, seed=1):
-    x = np.random.default_rng(seed).normal(size=(n, hw, hw, cin)) * 0.3
-    return np.maximum(x, 0.0).astype(np.float32)
 
 
 def jax_tree(p, dtype=jnp.float32):
@@ -96,13 +69,14 @@ def test_stacked_members_match_jax_vmap(name, cin, hw):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-def bf16_agreement(got: np.ndarray, want: np.ndarray) -> tuple[float, float]:
-    """(share of outputs within one bf16 ulp of each other, max |diff| over
-    the largest |value|): the bf16 criterion of T1 here and on the card."""
-    top = np.maximum(np.abs(got), np.abs(want))
-    ulp = np.where(top > 0, 2.0 ** (np.floor(np.log2(np.maximum(top, 1e-30))) - 7), 0.0)
-    diff = np.abs(got - want)
-    return float((diff <= ulp).mean()), float(diff.max() / np.abs(want).max())
+def test_bf16_agreement_counts_one_ulp_of_the_larger_value():
+    """T1's bf16 criterion (``bench.bf16_agreement``, used here and on the
+    card): one ulp is that of the larger magnitude, 2**-7 in [1, 2) and
+    2**-6 in [2, 4); the second number is max |diff| over max |want|."""
+    got = torch.tensor([1.0, 1.0, 1.9921875, 0.0, 3.0])
+    want = torch.tensor([1.0078125, 1.015625, 2.0, 0.0, 3.0])
+    share, rel = bench.bf16_agreement(got, want)
+    assert share == pytest.approx(4 / 5) and rel == pytest.approx(0.015625 / 3.0)
 
 
 def test_plain_bf16_matches_pallas_kernel_in_bf16():
@@ -117,8 +91,8 @@ def test_plain_bf16_matches_pallas_kernel_in_bf16():
     xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).to(torch.bfloat16)
     got = t1.fused_inception(p, name, spec, xt)
     assert got.dtype == torch.bfloat16
-    share, rel = bf16_agreement(got.float().numpy(), want)
-    assert share >= 0.99 and rel <= 1 / 64, (share, rel)
+    share, rel = bench.bf16_agreement(got, torch.from_numpy(want))
+    assert share >= bench.BF16_SHARE and rel <= bench.BF16_REL, (share, rel)
 
 
 def test_block_geometry_walks_the_jax_blocks():

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_cases
 from jax.experimental.pallas import tpu as pltpu
 
 from videoquery.kernels.tvl1 import TVL1Params as JaxTVL1Params
@@ -55,6 +56,8 @@ def port_params(jp: JaxTVL1Params) -> TVL1Params:
 
 
 def texture(rng, n, h, w):
+    """[n, h, w] smooth f32 images in [0, 1]: coarse noise, cubic-resized
+    (the `cuda` tests, without jax, box-blur it instead)."""
     base = jnp.asarray(rng.normal(size=(n, max(h // 6, 2), max(w // 6, 2))))
     img = jax.image.resize(base, (n, h, w), "cubic")
     lo = img.min(axis=(1, 2), keepdims=True)
@@ -63,12 +66,7 @@ def texture(rng, n, h, w):
 
 
 def make_pair(h, w, seed=0, n=2, flow=1.0):
-    rng = np.random.default_rng(seed)
-    i0 = texture(rng, n, h, w)
-    i1 = np.roll(i0, 2, axis=2) + 0.01 * rng.random(i0.shape).astype(np.float32)
-    u = rng.uniform(-flow, flow, i0.shape).astype(np.float32)
-    v = rng.uniform(-flow, flow, i0.shape).astype(np.float32)
-    return i0, i1.astype(np.float32), u, v
+    return _torch_cases.make_pair(h, w, seed, n, flow, images=texture)
 
 
 def assert_flow_close(got, want):

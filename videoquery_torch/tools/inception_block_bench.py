@@ -8,18 +8,21 @@ library yardstick only: it rounds the sum and the bias in the activation
 type, and the port never runs it in T1's place.
 
 Geometry as the JAX tool's: the ensemble's K members (``--splits``, the
-same weights ``init_params(0, 3)`` in each, as the JAX tool stacks them)
-each run ``--images`` images of one block's input, a ReLU'd random tensor
-(block inputs are >= 0; T1's MAX pool relies on it), in ``--dtype``.
-``--splits 1`` is the extraction path's geometry (one net's 200 images a
-call); 3 the JAX tool's (x shared by the members). For every stride-1
-block (default: all 8) it times, on the same input and in turns (cuDNN, T1,
-T1, cuDNN; CUDA events over ``--reps`` runs each), K chains and one T1 call
-for all K members, and the plain version (``fused_inception_reference``)
-once over fewer runs; it prints one line per block with the work's bound
-on an H100 SXM (989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor cores,
-3.35 TB/s), and one with the device time of each of T1's device launches
-in one call (torch.profiler).
+same weights ``init_params(0, 3)`` in each, as the JAX tool stacks them,
+with every bias drawn ~N(0, 0.3) as BN-folded weights have them) each run
+``--images`` images of one block's input, a ReLU'd random tensor (block
+inputs are >= 0; T1's MAX pool relies on it), in ``--dtype``. ``--splits
+1`` is the extraction path's geometry (one net's 200 images a call); 3 the
+JAX tool's (x shared by the members). For every stride-1 block (default:
+all 8) it holds T1's output against its plain version
+(``fused_inception_reference``) at that shape, then times, on the same
+input and in turns (cuDNN, T1, T1, cuDNN; CUDA events over ``--reps`` runs
+each), K chains and one T1 call for all K members, and the plain version
+once over fewer runs; it prints one line per block with the agreement, the
+work's bound on an H100 SXM (989 TFLOP/s bf16, 67 TFLOP/s f32 outside the
+tensor cores, 3.35 TB/s), and one with the device time of each of T1's
+device launches in one call (torch.profiler). It exits 1 unless every block
+meets T1's criterion (bf16: ``bf16_agreement``; f32: rtol 1e-4 / atol 1e-5).
 
     python -m videoquery_torch.tools.inception_block_bench [--blocks inception_4b] [--splits 1]
 """
@@ -39,6 +42,33 @@ from videoquery_torch.nn import bn_inception as bi
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# T1's bf16 criterion against its plain version: this share of outputs
+# within one bf16 ulp, and max |diff| at most this part of the largest output
+BF16_SHARE, BF16_REL = 0.99, 1 / 64
+F32_RTOL, F32_ATOL = 1e-4, 1e-5    # f32: only the order of sums differs
+BIAS_STD = 0.3
+
+
+def bf16_agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(share of outputs within one bf16 ulp of each other, max |diff| over
+    the largest |value|): T1's bf16 criterion. The ulp is that of the larger
+    magnitude, 2**(e - 8) for a value in [2**(e-1), 2**e)."""
+    got, want = got.float(), want.float()
+    top = torch.maximum(got.abs(), want.abs())
+    exp = torch.frexp(top).exponent
+    ulp = torch.where(top > 0, torch.ldexp(torch.ones_like(top), exp - 8),
+                      torch.zeros_like(top))
+    diff = (got - want).abs()
+    return float((diff <= ulp).float().mean()), float(diff.max() / want.abs().max())
+
+
+def with_biases(params: dict, seed: int) -> dict:
+    """``params`` with every bias redrawn ~N(0, BIAS_STD) from a seeded numpy
+    generator (``init_params`` draws zeros; BN-folded weights do not)."""
+    rng = np.random.default_rng(seed)
+    return {k: {"w": v["w"],
+                "b": (rng.normal(size=np.shape(v["b"])) * BIAS_STD).astype(np.float32)}
+            for k, v in params.items()}
 
 
 def block_geometry() -> dict[str, tuple[int, int, dict]]:
@@ -154,10 +184,14 @@ def launch_breakdown(fn, attempts: int = 3) -> list[float] | None:
 
 def run(blocks=None, images: int = 200, splits: int = 3, dtype: str = "bfloat16",
         reps: int = 10, device=None, log=print) -> list[dict]:
-    """Time every block of ``blocks`` (default: the 8 stride-1 blocks);
-    returns one dict per block: T1, cuDNN and plain ms, the bound, T1's
-    device launches a call and their ms, and T1's mean |difference| from
-    the cuDNN chain relative to its mean |value|."""
+    """Check and time every block of ``blocks`` (default: the 8 stride-1
+    blocks); returns one dict per block: T1's agreement with its plain
+    version at this shape (``share_1ulp`` and ``rel_err`` as
+    ``bf16_agreement`` gives them, ``max_abs_err``, ``ok`` by the criterion
+    of the dtype), T1, cuDNN and plain ms, the bound, T1's device launches a
+    call and their ms, and T1's mean |difference| from the cuDNN chain
+    relative to its mean |value| (the chain rounds twice: a yardstick, not a
+    reference)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("the A/B times kernels on the card; it needs CUDA")
@@ -165,7 +199,7 @@ def run(blocks=None, images: int = 200, splits: int = 3, dtype: str = "bfloat16"
     torch.backends.cudnn.allow_tf32 = False
     dt = DTYPES[dtype]
     geo = block_geometry()
-    base = bi.init_params(0, 3)
+    base = with_biases(bi.init_params(0, 3), 1)
     net = bi.BNInception(base).to(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -183,10 +217,15 @@ def run(blocks=None, images: int = 200, splits: int = 3, dtype: str = "bfloat16"
             return t1.fused_inception(wts, name, spec, x)
 
         with torch.no_grad():
-            got = fused()[0].float()
-            want = unfused()[0].permute(0, 2, 3, 1).float()
-            rel = float((got - want).abs().mean() / want.abs().mean())
-            del got, want
+            got = fused()
+            want = t1.fused_inception_reference(wts, name, spec, x)
+            share, rel = bf16_agreement(got, want)
+            err = float((got.float() - want.float()).abs().max())
+            ok = (share >= BF16_SHARE and rel <= BF16_REL if dt == torch.bfloat16
+                  else bool(torch.allclose(got, want, rtol=F32_RTOL, atol=F32_ATOL)))
+            lib = unfused()[0].permute(0, 2, 3, 1).float()
+            rel_lib = float((got[0].float() - lib).abs().mean() / lib.abs().mean())
+            del got, want, lib
             lib_a = cuda_ms(unfused, reps)
             t1_a = cuda_ms(fused, reps)
             t1_b = cuda_ms(fused, reps)
@@ -194,14 +233,17 @@ def run(blocks=None, images: int = 200, splits: int = 3, dtype: str = "bfloat16"
             plain = cuda_ms(lambda: t1.fused_inception_reference(wts, name, spec, x), 2)
             launches = launch_breakdown(fused)
         row = {"block": name, "hw": hw, "cin": cin, "t1_ms": (t1_a + t1_b) / 2,
-               "cudnn_ms": (lib_a + lib_b) / 2, "plain_ms": plain, "rel_diff": rel,
+               "cudnn_ms": (lib_a + lib_b) / 2, "plain_ms": plain, "share_1ulp": share,
+               "rel_err": rel, "max_abs_err": err, "ok": ok, "rel_diff_cudnn": rel_lib,
                "launch_ms": launches, "device_launches": len(launches or ()),
                **block_work(hw, cin, spec, images, splits, dt)}
         rows.append(row)
-        log(f"{name} {hw}x{hw} cin {cin}: T1 {row['t1_ms']:.3f} ms, cuDNN chain "
+        log(f"{name} {hw}x{hw} cin {cin}: against the plain version {share:.5f} of outputs "
+            f"within one bf16 ulp, max |diff| / max |value| {rel:.2e}, max abs err {err:.3e}"
+            f"{'' if ok else ' FAILS the criterion'}; T1 {row['t1_ms']:.3f} ms, cuDNN chain "
             f"{row['cudnn_ms']:.3f} ms, plain {plain:.3f} ms; bound {row['bound_ms']:.3f} ms "
             f"({row['flops'] / 1e12:.3f} TFLOP, {row['bytes'] / 1e9:.3f} GB, "
-            f"{row['bound_by']}); T1 vs cuDNN mean |diff| / mean |value| {rel:.2e}")
+            f"{row['bound_by']}); T1 vs cuDNN chain mean |diff| / mean |value| {rel_lib:.2e}")
         if launches is not None and len(launches) == len(LAUNCHES_OF_T1[dt]):
             log(f"{name} T1's {len(launches)} device launches (profiler, one call): " + ", ".join(
                 f"{what} {ms:.3f} ms" for what, ms in zip(LAUNCHES_OF_T1[dt], launches)))
@@ -224,7 +266,9 @@ def main(argv=None) -> None:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     args = ap.parse_args(argv)
-    run(args.blocks, args.images, args.splits, args.dtype, args.reps)
+    rows = run(args.blocks, args.images, args.splits, args.dtype, args.reps)
+    if not all(r["ok"] for r in rows):
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":
