@@ -67,6 +67,24 @@ Phases, each printing its own lines; any failure exits non-zero:
             device time by kind (T1, cuDNN convs, pools, casts and
             elementwise passes, concats), K2's, K3's and T1's device time
             and device launches.
+8b. ingest the operator's ingest path, in phase 8's directory: a second
+            synthetic 340x256 video (4 full clips and a tail) beside phase 8's;
+            the extraction CLI on both with 2 decode worker processes, the
+            compact uploads (host gray, host crop, YUV 4:2:0) and bf16
+            networks, which must launch K2, K3 and T1; its CSVs equal, byte
+            for byte, those of Extractor.extract_video_stream in this process
+            (same config and weights), whose signatures equal extract_frames
+            over the whole decoded video bit for bit; the compact CSVs
+            against phase 8's full-frame bf16 ones (least cosine: rgb >
+            0.999, flow > 0.97, the JAX package's floors); the loader with
+            --shard_out --no_api, the shards onto the card in f32 and bf16
+            equal to load_index of the CSVs bit for bit, and K1's top-20 on
+            both the same ids. Clips/s file -> CSVs for one process streaming
+            and for 2 workers; one process with the CLI's whole-video decode
+            prefetch against streaming (two videos, then one), equal bit for
+            bit; one traced streaming run (device busy time, idle share, top
+            kernels); the compact payload's MB a clip, the shards' write and
+            load times: a JSON line {"ingest": ...} before the card's line.
 9. t1       T1 (fused stride-1 Inception block) against its plain version
             at all 8 stride-1 block shapes, 3 members x 4 images, and in the
             extraction path's geometry (one member, its own x, 25 images,
@@ -590,14 +608,16 @@ def cuda_ms(fn, repeats: int = 10) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def trace(fn, top: int = 8) -> dict:
-    """One torch.profiler trace of fn(): traced wall ms (host clock around a
-    synchronised call), device busy ms (the union of kernel intervals), the
-    idle share, and the `top` kernels by device time."""
+def trace(fn, top: int = 8, warm: bool = True) -> dict:
+    """One torch.profiler trace of fn() (after one untraced call if `warm`):
+    traced wall ms (host clock around a synchronised call), device busy ms
+    (the union of kernel intervals), the idle share, and the `top` kernels
+    by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -622,12 +642,8 @@ def trace(fn, top: int = 8) -> dict:
             "by_name": by_name}
 
 
-# the device kernels of K2 (tvl1_level.cu: the band route, and the tiles
-# route's per-step kernels) and of K3 (window_warp.cu), as the profiler names them
-# (with "void " before a template's name only)
-K2_KERNELS = re.compile(r"^(?:void )?\(anonymous namespace\)::(tvl1_band_kernel|pad_kernel|"
-                        r"crop_kernel|clamp_kernel|vpass_kernel|hpass_kernel|full_kernel|"
-                        r"grad_kernel|lin_kernel|pd_kernel)\b")
+# the device kernels of K3 (window_warp.cu) as the profiler names them (with
+# "void " before a template's name only; K2's: tvl1_level.DEVICE_KERNELS)
 K3_KERNELS = re.compile(r"^(?:void )?\(anonymous namespace\)::warp4?_kernel\b")
 # T1's bf16 kernels (inception_block.cu)
 T1_KERNELS = re.compile(r"^(?:void )?\(anonymous namespace\)::(xtile|conv3x3)_kernel\b")
@@ -1010,7 +1026,7 @@ def phase_extract(dev, tmp: str) -> dict:
                        "by_kind": by_kind(tr_net)}
     tr = trace(lambda: step("bfloat16"))
     log_trace("extract", "one 8-clip batch with bf16 networks", tr)
-    k2_ms, k2_n = kernel_time(tr, K2_KERNELS)
+    k2_ms, k2_n = kernel_time(tr, k2.DEVICE_KERNELS)
     k3_ms, k3_n = kernel_time(tr, K3_KERNELS)
     t1_ms, t1_n = kernel_time(tr, T1_KERNELS)
     log(f"[extract] in that trace: K2 {k2_ms:.2f} ms of device time in {k2_n} device "
@@ -1025,6 +1041,207 @@ def phase_extract(dev, tmp: str) -> dict:
                                  "k2_device_launches": k2_n, "k3_ms": k3_ms,
                                  "k3_device_launches": k3_n, "t1_ms": t1_ms,
                                  "t1_device_launches": t1_n}}
+
+
+# -- phase 8b -----------------------------------------------------------------
+
+def csv_tree(root: str) -> dict[str, bytes]:
+    """{path under root: file bytes} of a CSV tree."""
+    out = {}
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def min_cosine(a, b) -> float:
+    """The least cosine between matching rows of two [clips, D] arrays."""
+    import numpy as np
+
+    return float(((a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1)
+                                    + 1e-12)).min())
+
+
+def phase_ingest(dev, tmp: str) -> dict:
+    """The operator's ingest path in phase 8's directory: two videos through
+    the CLI's decode workers with the compact uploads in bf16, held bit for
+    bit against one process streaming and that against the whole decoded
+    video; the CSVs against phase 8's; the loader's shards onto the card
+    against the CSV-built index; K1's top-20 on both."""
+    import numpy as np
+    import torch
+
+    from videoquery_torch.core.config import ExtractionConfig
+    from videoquery_torch.index.csvio import read_features_csv
+    from videoquery_torch.index.persist import load_index_binary
+    from videoquery_torch.kernels import inception_block as t1, query as k1
+    from videoquery_torch.kernels import tvl1_level as k2, window_warp as k3
+    from videoquery_torch.nn.tsn import TwoStreamTSN
+    from videoquery_torch.pipeline import decode, extract
+    from videoquery_torch.pipeline.payload import plan_groups
+    from videoquery_torch.service import loader
+
+    videos = [os.path.join(tmp, "synthetic_pan_zoom.mp4"),
+              os.path.join(tmp, "synthetic_pan_zoom_b.mp4")]
+    write_synthetic_video(videos[1], 4 * 150 + 40, seed=1)      # 4 full clips + a tail
+    names = [os.path.splitext(os.path.basename(v))[0] for v in videos]
+    flags = ["--host_gray", "--host_crop", "--host_yuv420", "--dtype", "bfloat16"]
+
+    # the main path: the CLI, 2 decode workers, compact uploads, bf16
+    out_mp = os.path.join(tmp, "features_compact")
+    k2.LAUNCHES = k3.LAUNCHES = t1.LAUNCHES = 0
+    t0 = time.perf_counter()
+    extract.main([tmp, "--out", out_mp, "--workers", "2", "--seed", "0", *flags])
+    t_cli = time.perf_counter() - t0
+    launches = {"K2": k2.LAUNCHES, "K3": k3.LAUNCHES, "T1": t1.LAUNCHES}
+    log(f"[ingest] CLI {tmp} --workers 2 {' '.join(flags)}: {t_cli:.1f} s with the TSN's "
+        f"build and the workers' spawn; launches {launches}")
+    for name, n in launches.items():
+        assert n > 0, f"the ingest path never launched {name}"
+
+    # one process, the same config and weights: the whole decoded video,
+    # then the stream (timed), then the workers again (timed)
+    cfg = ExtractionConfig(host_gray=True, host_crop=True, host_yuv420=True)
+    ex = extract.Extractor(TwoStreamTSN.random(0, (1, 2, 3), dev), cfg, device=dev,
+                           dtype="bfloat16")
+    whole, planned = {}, 0
+    for v in videos:
+        frames = decode.load_video(v, new_size=ex._decode_size())
+        planned += sum(len(nums) for _g, nums in plan_groups(len(frames), cfg))
+        whole[v] = extract.gather_signatures(list(ex.extract_frames(frames)))
+    del frames
+    sizes = []
+    dispatch = ex._dispatch_payload
+
+    def counted(pl):
+        sizes.append((pl.nbytes, len(pl.nums)))
+        return dispatch(pl)
+
+    out_stream = os.path.join(tmp, "features_stream")
+    ex._dispatch_payload = counted
+    t0 = time.perf_counter()
+    stream = {v: ex.extract_video_stream(v) for v in videos}
+    for v, name in zip(videos, names):
+        ex.write_csv_tree(stream[v], out_stream, name, v)
+    t_stream = time.perf_counter() - t0
+    ex._dispatch_payload = dispatch
+    n_clips = sum(len(s.clip_numbers) for sigs in stream.values() for s in sigs)
+    out_mp2 = os.path.join(tmp, "features_mp")
+    t0 = time.perf_counter()
+    by_path = ex.extract_videos(videos, workers=2)
+    for v, name in zip(videos, names):
+        ex.write_csv_tree(by_path[v], out_mp2, name, v)
+    t_mp = time.perf_counter() - t0
+    assert n_clips == planned, (n_clips, planned)    # 9 + 5 at the production config
+
+    # the CLI's one-process branch (whole-video decode, the next video's on
+    # a host thread) against streaming, both without the CSVs: on the two
+    # videos, then in the other order on the longer one alone
+    def timed(fn, vs):
+        t0 = time.perf_counter()
+        out = fn(vs)
+        return time.perf_counter() - t0, out
+
+    def run_stream(vs):
+        return {v: ex.extract_video_stream(v) for v in vs}
+
+    t_pf, prefetched = timed(ex.extract_videos_prefetch, videos)
+    t_stream2, _ = timed(run_stream, videos)
+    t_stream1, _ = timed(run_stream, videos[:1])
+    t_pf1, _ = timed(ex.extract_videos_prefetch, videos[:1])
+    for v in videos:
+        for a, b in zip(prefetched[v], stream[v], strict=True):
+            assert np.array_equal(a.rgb, b.rgb) and np.array_equal(a.flow, b.flow), v
+    n_one = sum(len(s.clip_numbers) for s in stream[videos[0]])
+    prefetch = {"two_videos": {"prefetch_s": t_pf, "stream_s": t_stream2},
+                "one_video": {"clips": n_one, "stream_s": t_stream1, "prefetch_s": t_pf1}}
+    log(f"[ingest] one process, no CSVs: 2 videos prefetch {n_clips / t_pf:.2f} clips/s "
+        f"({t_pf:.2f} s), then streaming {n_clips / t_stream2:.2f} ({t_stream2:.2f} s); "
+        f"the {n_one}-clip video alone streaming {n_one / t_stream1:.2f} ({t_stream1:.2f} s), "
+        f"then prefetch {n_one / t_pf1:.2f} ({t_pf1:.2f} s); prefetch equals streaming bit "
+        f"for bit")
+    # where the streaming run's time goes: one traced run over both videos
+    tr = trace(lambda: run_stream(videos), warm=False)
+    log_trace("ingest", f"one process streaming {n_clips} clips", tr)
+    stream_trace = {k: tr[k] for k in ("wall_ms", "busy_ms", "idle_share")}
+
+    # bit for bit: CSV bytes (str of each f32 is exact) and signatures
+    got, want = csv_tree(out_mp), csv_tree(out_stream)
+    splits = ex.tsn.rgb.splits
+    assert sorted(got) == sorted(want) and len(want) == 2 * len(splits) * 2, sorted(got)
+    assert got == want, "the 2-worker CLI's CSVs differ from one process streaming"
+    assert csv_tree(out_mp2) == want, "extract_videos differs from one process streaming"
+    for v in videos:
+        assert [s.clip_numbers for s in stream[v]] == [s.clip_numbers for s in whole[v]]
+        for a, b in zip(stream[v], whole[v]):
+            assert np.array_equal(a.rgb, b.rgb) and np.array_equal(a.flow, b.flow), \
+                f"{v}: streaming differs from the whole decoded video"
+    log(f"[ingest] the 2-worker CLI's {len(got)} CSVs equal one process streaming byte "
+        f"for byte; streaming equals extract_frames over the whole decoded video bit for bit")
+
+    # the compact CSVs against phase 8's full-frame bf16 CSVs of the same video
+    cos = {"rgb": 1.0, "warped_optical_flow": 1.0}
+    for rel in want:
+        if not rel.startswith(names[0] + os.sep):
+            continue
+        a = read_features_csv(os.path.join(out_mp, rel))
+        b = read_features_csv(os.path.join(tmp, "features_bf16", rel))
+        assert np.array_equal(a.clip_numbers, b.clip_numbers)
+        cos[a.stream] = min(cos[a.stream], min_cosine(a.features, b.features))
+    log(f"[ingest] compact against full-frame uploads (phase 8, bf16): least cosine rgb "
+        f"{cos['rgb']:.6f} (> 0.999), flow {cos['warped_optical_flow']:.6f} (> 0.97)")
+    assert cos["rgb"] > 0.999 and cos["warped_optical_flow"] > 0.97, cos
+
+    # the loader's shards onto the card, against the CSV-built index
+    shards = os.path.join(tmp, "shards")
+    t0 = time.perf_counter()
+    loader.main([out_mp, "--shard_out", shards, "--no_api"])
+    t_write = time.perf_counter() - t0
+    found, k1_launches = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = load_index_binary(shards, pad_multiple=32, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        ref = loader.load_index(out_mp, device=dev, dtype=dtype, pad_multiple=32)
+        assert idx.feats.dtype == ref.feats.dtype == dtype and idx.feats.device == dev
+        assert torch.equal(idx.feats.view(torch.int16), ref.feats.view(torch.int16)), dtype
+        assert torch.equal(idx.mask, ref.mask) and np.array_equal(idx.clip_ids, ref.clip_ids)
+        # K1's top-20 on both: 4 targets, each a clip's own features
+        pos = torch.tensor([0, 3, 9, 13], device=dev)
+        targets = ref.feats[:, :, pos].permute(2, 0, 1, 3).float().contiguous()
+        tmask = ref.mask[:, :, pos].permute(2, 0, 1).contiguous()
+        weights = torch.tensor([[1.0, 1.5]] * 4, device=dev)
+        k1.LAUNCHES = 0
+        ids = [k1.fused_query_topk(i.feats, i.mask, targets, tmask, weights, k=20)[1]
+               for i in (idx, ref)]
+        k1_launches += k1.LAUNCHES
+        assert k1.LAUNCHES == 2 and torch.equal(ids[0], ids[1]), dtype
+        name = str(dtype).removeprefix("torch.")
+        found[name] = {"load_ms": t_load * 1e3, "n_padded": idx.n_padded}
+        log(f"[ingest] {idx.n_clips} clips from {len(os.listdir(shards)) - 1} shard(s) onto "
+            f"the card in {name}: {t_load * 1e3:.1f} ms, equal to load_index of the CSVs bit "
+            f"for bit; K1 top-20 of 4 targets: the same ids on both")
+
+    mb_clip = sum(b for b, _n in sizes) / sum(n for _b, n in sizes) / 1e6
+    w, h = ex.cfg.frame_resize
+    full_mb_clip = ex.cfg.frames_per_clip * h * w * 3 / 1e6     # the all-frames upload
+    result = {"card": card_line(), "clips": n_clips,
+              "stream_clips_per_s": n_clips / t_stream, "stream_s": t_stream,
+              "workers2_clips_per_s": n_clips / t_mp, "workers2_s": t_mp,
+              "cli_workers2_s": t_cli, "one_process": prefetch,
+              "stream_trace": stream_trace, "compact_mb_per_clip": mb_clip,
+              "full_frame_mb_per_clip": full_mb_clip, "shard_write_ms": t_write * 1e3,
+              "shard_load": found, "least_cosine_vs_full_frames": cos,
+              "launches": launches, "k1_query_launches": k1_launches}
+    log(f"[ingest] file -> CSVs, 2 videos, {n_clips} clips, bf16: one process streaming "
+        f"{n_clips / t_stream:.2f} clips/s ({t_stream:.2f} s), 2 decode workers "
+        f"{n_clips / t_mp:.2f} clips/s ({t_mp:.2f} s); compact payload {mb_clip:.2f} MB a "
+        f"clip (all frames: {full_mb_clip:.1f}); shard write {t_write * 1e3:.1f} ms "
+        f"(loader --shard_out --no_api)")
+    return result
 
 
 # -- phase 9 ------------------------------------------------------------------
@@ -1250,9 +1467,11 @@ def main() -> int:
     level = phase_k2(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ext = phase_extract(dev, tmp)
+        ingest = phase_ingest(dev, tmp)
     block = phase_t1(dev)
     rollp = phase_t2(dev)
 
+    print(json.dumps({"ingest": ingest}))
     log(card_line())  # the card and its power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "K1 fused query scoring (avg+counts and scores epilogues)",
@@ -1272,6 +1491,7 @@ def main() -> int:
         "avg_counts_ms_1m_bf16_q8": query["avg_counts_ms_1m_bf16_q8"],
         "avg_counts_bound_ms_1m_bf16_q8": query["avg_counts_bound_ms_1m_bf16_q8"],
         "launches_extract_path": ext["launches"]["K1"],
+        "launches_ingest_query": ingest["k1_query_launches"],
     }, {
         "name": "K2 TV-L1 pyramid level (clamp, window warp, linearise, primal-dual)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
@@ -1283,6 +1503,7 @@ def main() -> int:
         "batch_flow_ms": ext["flow_ms"], "batch_flow_plain_ms": ext["flow_plain_ms"],
         "batch_ms": ext["step_ms"], "clip_bytes_equal_cpu": ext["same"],
         "bf16_batch_trace": ext["bf16_batch_trace"],
+        "launches_ingest_path": ingest["launches"]["K2"],
     }, {
         "name": "K3 window warp (separable and full)",
         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
@@ -1293,6 +1514,7 @@ def main() -> int:
         "full_mode_ms": warp["full_ms"], "full_mode_library_ms": warp["full_library_ms"],
         "full_mode_library_call": "F.grid_sample, bilinear, border padding",
         "host_us_48x64": warp["host_us"],
+        "launches_ingest_path": ingest["launches"]["K3"],
     }, {
         "name": "T1 fused stride-1 Inception block (bf16: an x-tile and two 3x3 wgmma "
                 "implicit-GEMM launches per call)",
@@ -1320,6 +1542,7 @@ def main() -> int:
         "extract_bf16_criterion": ext["bf16_criterion"],
         "rgb_nets_trace": ext["rgb_nets_trace"],
         "cuda_tests_passed": cuda_tests,
+        "launches_ingest_path": ingest["launches"]["T1"],
     }, {
         "name": "T2 roll by a shift read from device memory",
         "route": "cuda", "source": T2_SOURCE, "replaces": T2_REPLACES,

@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's jax-free modules against the
-originals: ``pipeline/sampling.py``, ``pipeline/decode.py`` (the functions
-the port calls) and ``testing/{fake_api,serve_fake_api}.py``.
+originals: ``pipeline/sampling.py``, ``pipeline/decode.py``,
+``testing/{fake_api,serve_fake_api,mp_stubs}.py``.
 
 The port imports nothing of the JAX package, so it carries these copies; a
 copy that drifts from its original is caught here. Equality is exact: the
@@ -8,6 +8,8 @@ same numpy arithmetic, the same decoded bytes, the same API state after the
 same fixture round.
 """
 
+import ast
+import inspect
 import json
 import os
 import threading
@@ -22,12 +24,13 @@ from conftest import REFERENCE_FIXTURES
 from videoquery.pipeline import decode as jdecode
 from videoquery.pipeline import sampling as jsampling
 from videoquery.testing import fake_api as jfake
+from videoquery.testing import mp_stubs as jstubs
 from videoquery_torch.core.config import HyperParams
 from videoquery_torch.pipeline import decode, sampling
 from videoquery_torch.service.compute_matches import compute_matches
 from videoquery_torch.service.loader import DBLoader
 from videoquery_torch.service.repository import APIRepository
-from videoquery_torch.testing import fake_api, serve_fake_api
+from videoquery_torch.testing import fake_api, mp_stubs, serve_fake_api
 
 # tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
 # from starving the timing tests that share the machine
@@ -73,6 +76,71 @@ def test_decode_copy_equals_original(tmp_path):
     assert len(list(decode.video_frames(ours, skip_first=False))) == 13
     with pytest.raises(IOError):
         decode.load_video(str(tmp_path / "missing.mp4"))
+
+
+def code_of(fn) -> str:
+    """A function's syntax tree without its docstring."""
+    node = ast.parse(inspect.getsource(fn)).body[0]
+    if ast.get_docstring(node) is not None:
+        node.body = node.body[1:]
+    return ast.dump(node)
+
+
+@pytest.mark.parametrize("copy,original", [(decode, jdecode), (mp_stubs, jstubs)])
+def test_copied_functions_have_the_original_code(copy, original):
+    """Every function of decode.py and mp_stubs.py is in the copy with the
+    same code (docstrings aside)."""
+    names = [n for n, f in vars(original).items()
+             if inspect.isfunction(f) and f.__module__ == original.__name__]
+    assert names
+    for name in names:
+        assert code_of(getattr(copy, name)) == code_of(getattr(original, name)), name
+
+
+def test_decode_helpers_copy_equals_original(tmp_path, monkeypatch):
+    """The grown decode copy against the original on the same inputs:
+    gray, its box prefactor, the frame count and fps probes, the seek-based
+    range decode and the chunked parallel decode (also when a chunk seeks
+    one frame late, where both fall back to the sequential reader)."""
+    path = str(tmp_path / "v.mp4")
+    decode.synthesize_video(path, n_frames=130, size=(64, 48))
+    frames = decode.load_video(path)
+    np.testing.assert_array_equal(decode.to_grayscale(frames[:5]),
+                                  jdecode.to_grayscale(frames[:5]))
+    for args in ((256, 340, 128, 128), (255, 339, 100, 120), (512, 512, 64, 64), (48, 64, 48, 64)):
+        assert decode._box_factor(*args) == jdecode._box_factor(*args)
+    assert decode.probe_frame_count(path) == jdecode.probe_frame_count(path) == 131
+    assert decode.video_fps(path) == jdecode.video_fps(path) == 15.0
+    for start, count, size in ((0, 5, None), (40, 41, None), (100, 50, (32, 24))):
+        got = decode._decode_range(path, start, count, size)
+        want = jdecode._decode_range(path, start, count, size)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    par = decode.load_video_parallel(path, workers=4, chunk=40)
+    np.testing.assert_array_equal(par, jdecode.load_video_parallel(path, workers=4, chunk=40))
+    np.testing.assert_array_equal(par, frames)
+    real = decode._decode_range
+
+    def shifted(p, start, count, new_size):
+        out = real(p, start, count, new_size)
+        if start == 40:   # the second chunk "seeks" one frame late
+            return out[1:] + real(p, start + count, 1, new_size)
+        return out
+
+    monkeypatch.setattr(decode, "_decode_range", shifted)
+    np.testing.assert_array_equal(decode.load_video_parallel(path, workers=4, chunk=40), frames)
+
+
+def test_mp_stubs_copy_yields_the_same_payloads():
+    for path in ("throttle:3:0", "throttle:4:0:fail"):
+        got, want = [], []
+        for out, stubs in ((got, mp_stubs), (want, jstubs)):
+            try:
+                out.extend(stubs.throttled_payloads(path, None, 2, None))
+            except RuntimeError as exc:
+                out.append(str(exc))
+        assert got == want and len(got) == 3   # 3 payloads, or 2 and the failure
 
 
 def fixture_round(fake, report_dir):

@@ -13,10 +13,13 @@ versions are held against the JAX package on the CPU by the other
 ``tests/test_torch_*.py`` modules.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 from _torch_cases import block_params, make_pair, relu_input
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from videoquery_torch.kernels import _launch
 from videoquery_torch.kernels import inception_block as t1
@@ -90,6 +93,25 @@ K2_MODES = {
     "image_separable": dict(grad_source="image", separable_warp=True),
     "image_full": dict(grad_source="image", separable_warp=False),
 }
+# the device launches of K2's C call: its kernels and the tiles route's memset
+K2_OWN = re.compile(k2.DEVICE_KERNELS.pattern + "|memset", re.IGNORECASE)
+
+
+class _AtenOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func.overloadpacket))
+        return func(*args, **(kwargs or {}))
+
+
+def aten_ops(fn) -> list[str]:
+    """The aten ops one call of fn runs, in order (a C call is none)."""
+    with _AtenOps() as mode:
+        fn()
+    return mode.ops
 
 
 @pytest.mark.cuda
@@ -120,12 +142,27 @@ def test_k2_matches_plain_version(mode, shape):
     plan = k2.level_plan(n, h, w, d)
     want = plan.device_launches(k2.warp_mode(p), p.n_warps, p.n_iters)
     assert want == 1 or plan.route == "tiles"
-    # in the image modes the wrapper takes I1's gradients with torch ops
-    # before the C call; the plan counts the C call's launches
-    grads = (0 if k2.warp_mode(p) == k2.MODE_WARPED
-             else _launch.device_launches(
-                 lambda: [t.contiguous() for t in k2.centered_grad(args[1])]))
-    assert _launch.device_launches(lambda: k2.tvl1_level(*args, p, d)) == want + grads
+    # the plan counts the C call's launches: K2's kernels by name and, on
+    # the tiles route, the memset of its scratch. Besides the C call the
+    # wrapper runs torch ops only in the image modes, where it takes I1's
+    # gradients (no memset among them): its aten ops are theirs, the
+    # allocations of the output and the tiles route's scratch and the
+    # output's two views, and every other kernel the call launches is one
+    # of theirs by name.
+    call = lambda: k2.tvl1_level(*args, p, d)  # noqa: E731
+    warped = k2.warp_mode(p) == k2.MODE_WARPED
+    grads = ((lambda: None) if warped
+             else lambda: [t.contiguous() for t in k2.centered_grad(args[1])])
+    allocs = ["aten.empty"] * (2 if plan.route == "tiles" else 1)
+    assert aten_ops(call) == aten_ops(grads) + allocs + ["aten.select"] * 2
+    if warped:
+        assert _launch.device_launches(call) == want
+        return
+    seen = _launch.device_kernels(call)
+    assert sum(n for name, n in seen.items() if K2_OWN.search(name)) == want, seen
+    other = {name for name in seen if not K2_OWN.search(name)}
+    theirs = set(_launch.device_kernels(grads))
+    assert other and other <= theirs, (other - theirs, theirs)
 
 
 # -- K3 -----------------------------------------------------------------------

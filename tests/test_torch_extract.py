@@ -240,13 +240,23 @@ def test_cli_bf16_csvs_ingest_and_meet_the_bf16_criterion(tmp_path, monkeypatch)
 
 
 def test_extractor_refuses_what_is_not_ported():
+    """What the port refuses: another blob than global_pool (it would label
+    global_pool vectors wrongly), the affine camera, another working type,
+    and compact uploads out of order (host crop without host gray), in the
+    config and on the CLI before anything is written."""
+    from videoquery_torch.kernels.tvl1 import TVL1Params
+
     tsn = TwoStreamTSN.random(0, splits=(1,), device="cpu")
-    with pytest.raises(ValueError):
-        te.Extractor(tsn, ExtractionConfig(host_gray=True), device="cpu")
+    with pytest.raises(ValueError, match="host_crop requires host_gray"):
+        ExtractionConfig(host_crop=True)
     with pytest.raises(ValueError):
         te.Extractor(tsn, ExtractionConfig(feature_blob="fc-action"), device="cpu")
-    with pytest.raises(SystemExit):
-        te.main(["synthetic", "--out", "unused", "--workers", "2"])
+    with pytest.raises(NotImplementedError):
+        te.Extractor(tsn, ExtractionConfig(), tvl1=TVL1Params(camera_model="affine"),
+                     device="cpu")
+    with pytest.raises(ValueError, match="host_yuv420 requires host_crop"):
+        te.main(["synthetic", "--out", "unused", "--host_gray", "--host_yuv420"])
+    assert not os.path.exists("unused")
     with pytest.raises(ValueError):
         te.Extractor(tsn, ExtractionConfig(), device="cpu", dtype="float16")
 

@@ -2,7 +2,13 @@
 
 It serves the broker round (``python -m videoquery_torch.service.broker``)
 and extracts two-stream TSN features from video
-(``python -m videoquery_torch.pipeline.extract``) on one NVIDIA GPU. The
+(``python -m videoquery_torch.pipeline.extract``) on one NVIDIA GPU, with
+the ingest path around it that a host without jax needs: caffemodels to npz
+weights (``python -m videoquery_torch.nn.convert_caffe``), decode worker
+processes feeding compact uploads to the card (``pipeline/mpstream.py``,
+``--workers N --host_gray --host_crop --host_yuv420``), and the CSVs into
+``.vqidx`` shards (``python -m videoquery_torch.service.loader ...
+--shard_out DIR --no_api``; ``index/persist.py`` loads them). The
 similarity pass and the fused query scores run on a hand-written CUDA
 kernel (``kernels/csrc/query_kernel.cu``), the TV-L1 flow on two more (one
 pyramid level, ``kernels/csrc/tvl1_level.cu``; the window warp,
@@ -16,7 +22,7 @@ dynamic-shift roll (``kernels/csrc/roll.cu``,
 ``videoquery`` is the reference this package is tested against; this
 package imports nothing of it and keeps its own copies of the jax-free
 modules it needs (``pipeline/sampling.py``, ``pipeline/decode.py``,
-``testing/fake_api.py``).
+``testing/fake_api.py``, ``testing/mp_stubs.py``).
 
 Subpackages mirror ``videoquery``: ``core``, ``index``, ``kernels``, ``nn``,
 ``pipeline``, ``search``, ``service``, ``testing``, and ``tools`` for the

@@ -148,8 +148,7 @@ class SearchConfig:
 class ExtractionConfig:
     """Two-stream extraction pipeline configuration (reference
     calcSig_wOF.py:156-189 and build_wof_clips.py:133-150). A copy of the
-    JAX package's without its streaming window; the comments there say why
-    each default was chosen."""
+    JAX package's; the comments there say why each default was chosen."""
 
     fps: int = 15
     clip_seconds: int = 10
@@ -176,11 +175,15 @@ class ExtractionConfig:
     flow_gray_matmul: bool = True
     # decode straight to frame_resize (one cv2 resize at decode time)
     decode_at_target: bool = True
-    # compact uploads (host gray, host crop, host YUV 4:2:0); the port's
-    # extractor does not take them yet
+    # compact uploads: the uint8 gray at the flow grid computed on the host
+    # and only the tick frames uploaded (host_gray); those frames resized and
+    # cropped on the host (host_crop); and packed as YUV 4:2:0 (host_yuv420)
     host_gray: bool = False
     host_crop: bool = False
     host_yuv420: bool = False
+    # streaming decode: the producer thread runs at most this many clip
+    # batches ahead of the device (2 at least: one in flight, one decoding)
+    stream_window_batches: int = 3
 
     def __post_init__(self):
         if self.flow_warm_camera not in ("key", "own", "init"):

@@ -13,13 +13,15 @@ enters a ``torch.cuda.device`` context only when the operands lie on
 another device than the current one, and raises when the C function
 returns a CUDA error. Nothing is built or loaded until the first launch.
 The operand checks stay in each wrapper. ``device_launches`` counts, for
-checks and measurements, the device launches of one call.
+checks and measurements, the device launches of one call
+(``device_kernels``: by kernel name).
 """
 
 from __future__ import annotations
 
 import ctypes
 import struct
+from collections import Counter
 
 import torch
 
@@ -61,20 +63,32 @@ def launch(entry: Entry, name: str, device: int, *args: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _traced_kernels(fn) -> Counter:
+    """{device kernel or memset name: launches} in one torch.profiler trace
+    of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter(e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def device_launches(fn, attempts: int = 3) -> int:
     """Device launches (kernels and memsets) of one call of ``fn``: the most
     that ``attempts`` torch.profiler traces of it show. A trace now and then
     misses device activity (seen on an H100: a 0.5 ms K2 call with none at
     all, a three-launch T1 call with two), and a missed launch only lowers
     the count."""
-    from torch.profiler import ProfilerActivity, profile
+    return max(sum(_traced_kernels(fn).values()) for _ in range(attempts))
 
-    count = 0
+
+def device_kernels(fn, attempts: int = 3) -> Counter:
+    """{name: device launches} of one call of ``fn``, per name the most that
+    ``attempts`` torch.profiler traces show (as ``device_launches``)."""
+    out: Counter = Counter()
     for _ in range(attempts):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        count = max(count, sum(1 for e in prof.events()
-                               if e.device_type == torch.autograd.DeviceType.CUDA))
-    return count
+        out |= _traced_kernels(fn)
+    return out

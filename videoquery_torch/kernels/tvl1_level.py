@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import re
 
 import numpy as np
 import torch
@@ -44,6 +45,11 @@ from videoquery_torch.kernels.window_warp import (PaddedGeometry, edge_pad,
 
 # kernel launches (C calls, one per level) since import, or since a reset
 LAUNCHES = 0
+# K2's device kernels (the band route's, the tiles route's per-step ones) as
+# torch.profiler names them ("void " before a template's name only)
+DEVICE_KERNELS = re.compile(r"^(?:void )?\(anonymous namespace\)::(tvl1_band_kernel|pad_kernel|"
+                            r"crop_kernel|clamp_kernel|vpass_kernel|hpass_kernel|full_kernel|"
+                            r"grad_kernel|lin_kernel|pd_kernel)\b")
 
 _SOURCE = "tvl1_level.cu"
 MODE_WARPED, MODE_IMAGE, MODE_FULL = 0, 1, 2

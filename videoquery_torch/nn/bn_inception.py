@@ -102,6 +102,23 @@ def init_params(seed: int, in_channels: int = RGB_CHANNELS,
     return params
 
 
+def conv_shapes(in_channels: int = RGB_CHANNELS) -> dict[str, tuple]:
+    """{conv name: HWIO weight shape (kh, kw, cin, cout)}, in topological
+    order."""
+    return {name: (k, k, cin, cout) for name, k, _p, _s, cin, cout in _conv_names(in_channels)}
+
+
+def fold_bn(
+    conv_w: np.ndarray, conv_b: np.ndarray,
+    scale: np.ndarray, shift: np.ndarray,
+    mean: np.ndarray, var: np.ndarray, eps: float = 1e-5,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Fold a frozen BN (y = scale*(x-mean)/sqrt(var+eps) + shift) into the
+    preceding HWIO conv. Every reference BN is frozen, so this is exact."""
+    inv = scale / np.sqrt(var + eps)
+    return conv_w * inv.reshape(1, 1, 1, -1), (conv_b - mean) * inv + shift
+
+
 def _ceil_pool_padding(size: int, k: int, s: int, pad: int) -> tuple[int, int]:
     """Caffe ceil-mode: out = ceil((size + 2*pad - k)/s) + 1, the last window
     clipped to start inside the padded input; the overhang becomes extra

@@ -7,7 +7,7 @@ one ``BNInception`` per split and runs them in turn on the same batch.
 
 Weights cross from the JAX package with ``from_jax_params`` (per-split
 pytrees of numpy arrays, HWIO convs) or from ``convert_caffe`` npz bundles
-with ``from_npz_dir``, read with numpy alone. Every constructor builds on
+(written by either package's converter) with ``from_npz_dir``. Every constructor builds on
 ``resolve_device(device)``: the card unless the caller (or
 ``VIDEOQUERY_DEVICE``) names the CPU.
 """
@@ -24,17 +24,7 @@ import torch
 from videoquery_torch.core.device import resolve_device
 from videoquery_torch.nn.bn_inception import (FLOW_CHANNELS, RGB_CHANNELS,
                                               BNInception, init_params)
-
-
-def load_npz(path: str) -> dict[str, dict[str, np.ndarray]]:
-    """A ``videoquery.nn.convert_caffe`` bundle: {layer: {'w', 'b'}}, keys
-    stored flat as 'layer::w'."""
-    params: dict[str, dict[str, np.ndarray]] = {}
-    with np.load(path) as flat:
-        for key in flat.files:
-            layer, k = key.split("::")
-            params.setdefault(layer, {})[k] = flat[key]
-    return params
+from videoquery_torch.nn.convert_caffe import load_npz
 
 
 @dataclasses.dataclass

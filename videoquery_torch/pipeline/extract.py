@@ -4,6 +4,9 @@ Port of ``videoquery/pipeline/extract.py``'s pair path (the JAX package's
 ``flow_impl="pallas"``). Per batch of clips, on the device:
 
   frames u8 [B, F, H, W, 3] -> gray at the flow grid [B, F, fh, fw]
+      (or, with the compact uploads, the host's u8 gray [B, F, fh, fw] and
+      only the T tick frames, resized and cropped on the host and packed as
+      YUV 4:2:0 where the config says so)
       -> warped TV-L1 of the pairs the tick stacks use (K3 camera warps,
          K2 levels; keyframe pairs solve the pyramid, warm pairs refine
          their key's flow; clamp-saturated pairs are re-solved wider)
@@ -12,16 +15,20 @@ Port of ``videoquery/pipeline/extract.py``'s pair path (the JAX package's
          bfloat16 activations, f32 accumulation: ``dtype``)
       -> {stream: [K, B, 1024]} f32 signatures (ticks averaged)
 
-and reference-format CSVs from them (calcSig_wOF.py:116-134). The device is
-explicit: CUDA unless the caller (or ``VIDEOQUERY_DEVICE``) names the CPU,
-where the kernels' plain versions run. TF32 is turned off in the entry
-points: the camera's cross-correlation argmax moves under it.
+and reference-format CSVs from them (calcSig_wOF.py:116-134). The host half
+(decode, payload build) is ``pipeline/payload.py``; a video streams through
+``Extractor.extract_video_stream`` (a decode thread) or, for many videos,
+``extract_videos`` (decode worker processes, ``pipeline/mpstream.py``). The
+device is explicit: CUDA unless the caller (or ``VIDEOQUERY_DEVICE``) names
+the CPU, where the kernels' plain versions run. TF32 is turned off in the
+entry points: the camera's cross-correlation argmax moves under it.
 
-Not ported yet: the host-gray/crop/YUV compact uploads, streaming decode,
-multi-process decode, warm-start advection, the all-frames clip-flow path
-and mesh sharding.
+Not ported yet: warm-start advection, the all-frames clip-flow path and mesh
+sharding.
 
     python -m videoquery_torch.pipeline.extract synthetic --out feats/ [--dtype bfloat16]
+    python -m videoquery_torch.pipeline.extract videos/ --out feats/ --workers 4 \
+        --host_gray --host_crop --host_yuv420
 """
 
 from __future__ import annotations
@@ -47,8 +54,9 @@ from videoquery_torch.kernels.tvl1_flow import (tvl1_flow, tvl1_flow_warm,
                                                 tvl1_warped_flow_warm)
 from videoquery_torch.nn.tsn import TwoStreamTSN
 from videoquery_torch.pipeline import decode
-from videoquery_torch.pipeline.payload import (build_payload, flow_grid_shape,
-                                               plan_groups)
+from videoquery_torch.pipeline.payload import (BatchPayload, build_payload,
+                                               flow_grid_shape, plan_groups,
+                                               stream_payloads)
 from videoquery_torch.pipeline.preprocess import (preprocess_flow,
                                                   preprocess_rgb,
                                                   quantize_flow)
@@ -190,6 +198,29 @@ def _bf16_operands(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def _yuv420_to_bgr(yuv: torch.Tensor) -> torch.Tensor:
+    """I420 uint8 [..., H*3//2, W] -> float32 BGR [..., H, W, 3] in [0, 255]:
+    nearest 2x chroma upsample and the BT.601 studio-swing constants of
+    cv2's own YUV2BGR_I420 (within 2 LSB of it). The device inverse of
+    decode.bgr_to_yuv420 (ExtractionConfig.host_yuv420)."""
+    hh, w = yuv.shape[-2:]
+    h = hh * 2 // 3
+    lead = tuple(yuv.shape[:-2])
+    y = yuv[..., :h, :].float()
+    # I420: Y [h, w], then the U and V planes of [h//2, w//2] each, packed
+    # row-major into h//4 rows of width w apiece
+    uv = yuv[..., h:, :].reshape(lead + (2, h // 2, w // 2))
+    u = uv[..., 0, :, :].float() - 128.0
+    v = uv[..., 1, :, :].float() - 128.0
+    u = u.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    v = v.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    yf = 1.1643836 * (y - 16.0)
+    b = yf + 2.0172321 * u
+    g = yf - 0.3917623 * u - 0.8129676 * v
+    r = yf + 1.5960267 * v
+    return torch.stack([b, g, r], dim=-1).clamp(0.0, 255.0)
+
+
 def _flow_gray_grid(frames_u8: torch.Tensor, flow_res_div: int,
                     matmul: bool = True):
     """ITU-R 601 luma (BGR order, cv2 parity) at the flow grid. Returns
@@ -239,15 +270,43 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @torch.no_grad()
 def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
                  cfg: ExtractionConfig, warped: bool, tvl1: TVL1Params,
-                 dtype: str = "float32"):
+                 dtype: str = "float32", gray_u8: torch.Tensor | None = None,
+                 native_hw: tuple[int, int] | None = None):
     """One batch: frames u8 [B, F, H, W, 3] BGR -> (rgb, flow) f32
     embeddings, each [K, B, 1024]. ``dtype`` ("float32" or "bfloat16") is
-    the networks' working type; the flow is f32 either way."""
-    gray, vscale = _flow_gray_grid(frames_u8, cfg.flow_res_div,
-                                   cfg.flow_gray_matmul)
+    the networks' working type; the flow is f32 either way.
+
+    The compact upload (cfg.host_gray, build_payload's layouts): gray_u8 u8
+    [B, F, fh, fw] is the host's gray at the flow grid, and frames_u8 holds
+    only the tick frames [B, T, H, W, 3]; with cfg.host_crop they are
+    already resized and cropped ([B, T, crop, crop, 3]; then native_hw, the
+    (H, W) the gray was computed from, is required), with cfg.host_yuv420
+    packed as I420 [B, T, crop * 3 // 2, crop]. native_hw sets the flow-grid
+    to native-pixel value scale."""
+    host_cropped = gray_u8 is not None and cfg.host_crop
+    if gray_u8 is not None:
+        if native_hw is not None:
+            h0, w0 = native_hw
+        else:
+            if host_cropped:
+                raise ValueError("host_crop needs native_hw: the cropped "
+                                 "tick frames no longer carry the native "
+                                 "size the flow values must scale to")
+            h0, w0 = frames_u8.shape[2], frames_u8.shape[3]
+        fh, fw = gray_u8.shape[2], gray_u8.shape[3]
+        gray = gray_u8.float() / 255.0
+        vscale = (w0 / fw, h0 / fh)
+    else:
+        gray, vscale = _flow_gray_grid(frames_u8, cfg.flow_res_div,
+                                       cfg.flow_gray_matmul)
     flow_q = _pair_flow(gray, plan.pair_idx, cfg.flow_bound, warped, tvl1,
                         vscale, plan.warm, cfg.flow_warm_camera)  # [B,P,h,w,2]
-    rgb_ticks = frames_u8[:, plan.tick_idx]                         # [B,T,H,W,3]
+    if gray_u8 is not None:
+        rgb_ticks = frames_u8          # the host gathered the tick frames
+        if host_cropped and cfg.host_yuv420:
+            rgb_ticks = _yuv420_to_bgr(rgb_ticks)    # f32 [B,T,crop,crop,3]
+    else:
+        rgb_ticks = frames_u8[:, plan.tick_idx]                     # [B,T,H,W,3]
     b = frames_u8.shape[0]
     t, d = plan.stack_pos.shape
     h, w = flow_q.shape[2:4]
@@ -255,7 +314,8 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
     # interleave x/y per depth -> channels [x1, y1, ..., xD, yD]
     stacks = stacks.permute(0, 1, 3, 4, 2, 5).reshape(b, t, h, w, d * 2)
     dt = DTYPES[dtype]
-    rgb_in = preprocess_rgb(rgb_ticks, cfg.frame_resize, cfg.crop_size, dtype=dt)
+    rgb_in = preprocess_rgb(rgb_ticks, cfg.frame_resize, cfg.crop_size, dtype=dt,
+                            precropped=host_cropped)
     flow_in = preprocess_flow(stacks, cfg.frame_resize, cfg.crop_size, dtype=dt)
     rgb_emb = tsn.rgb.embed(rgb_in.reshape((b * t,) + rgb_in.shape[2:]))
     flow_emb = tsn.flow.embed(flow_in.reshape((b * t,) + flow_in.shape[2:]))
@@ -306,8 +366,7 @@ class Extractor:
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}; got {dtype!r}")
         self.dtype = dtype
-        if self.cfg.host_gray:
-            raise ValueError("the compact host_gray upload is not ported yet")
+        self.flow_res_div = self.cfg.flow_res_div
         if self.cfg.feature_blob != "global_pool":
             # the net only computes global_pool; another name would label
             # global_pool vectors wrongly in the CSVs
@@ -351,11 +410,93 @@ class Extractor:
         """frames: BGR uint8 [N, H, W, 3] of a whole video. Yields batches of
         per-clip signatures (device tensors)."""
         for group, nums in plan_groups(len(frames), self.cfg, clip_numbers):
-            payload = build_payload(frames, group, nums, self.cfg)
-            frames_dev = torch.from_numpy(payload.clip_rgb).to(self.device)
-            rgb, flow = extract_step(self.tsn, frames_dev, self._plan(payload.f_len),
-                                     self.cfg, self.warped, self.tvl1, self.dtype)
-            yield ClipSignatures(payload.nums, rgb, flow, self.tsn.rgb.splits)
+            yield self._dispatch_payload(build_payload(
+                frames, None, group, nums, self.cfg, self.flow_res_div))
+
+    def _dispatch_payload(self, payload: BatchPayload) -> ClipSignatures:
+        """The device half of a batch: upload a host-built payload and run
+        extract_step on it. Payloads come from extract_frames, from this
+        process's decode thread (extract_video_stream) or from decode worker
+        processes (pipeline/mpstream.py)."""
+        frames_dev = torch.from_numpy(payload.clip_rgb).to(self.device)
+        gray_dev = (None if payload.gray is None
+                    else torch.from_numpy(payload.gray).to(self.device))
+        rgb, flow = extract_step(self.tsn, frames_dev, self._plan(payload.f_len),
+                                 self.cfg, self.warped, self.tvl1, self.dtype,
+                                 gray_u8=gray_dev, native_hw=payload.native_hw)
+        return ClipSignatures(payload.nums, rgb, flow, self.tsn.rgb.splits)
+
+    def extract_video_stream(self, path: str,
+                             new_size: tuple[int, int] | None = None
+                             ) -> list[ClipSignatures]:
+        """Decode on a producer thread while this thread uploads and runs
+        the batches: stream_payloads (decode, gray, payload build; cv2
+        releases the GIL) feeds a bounded queue of
+        max(2, cfg.stream_window_batches) payloads, so host memory stays a
+        few batches whatever the video's length and the wall clock
+        approaches max(decode, device) instead of their sum. A decode error
+        is raised here, never a silently shorter feature set. Returns the
+        batches sorted by clip, downloaded in one copy."""
+        import queue
+        import threading
+
+        if new_size is None:
+            new_size = self._decode_size()
+        q: "queue.Queue" = queue.Queue(
+            maxsize=max(2, self.cfg.stream_window_batches))
+        end = object()
+
+        def producer():
+            try:
+                for payload in stream_payloads(path, self.cfg,
+                                               self.flow_res_div, new_size):
+                    q.put(payload)
+                q.put(end)
+            except BaseException as exc:  # noqa: BLE001 — handed to the consumer
+                q.put(exc)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        sigs: list[ClipSignatures] = []
+        while True:
+            item = q.get()
+            if item is end:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            sigs.append(self._dispatch_payload(item))
+        t.join()
+        sigs.sort(key=lambda s: s.clip_numbers[0])
+        return gather_signatures(sigs)
+
+    def extract_videos(self, paths, workers: int = 0, new_size=None):
+        """Many videos with decode worker PROCESSES (pipeline/mpstream.py):
+        {path: [ClipSignatures]}. workers=0 picks cpu_count - 1."""
+        from videoquery_torch.pipeline.mpstream import extract_videos_mp
+
+        return extract_videos_mp(self, paths, workers=workers,
+                                 new_size=new_size)
+
+    def extract_videos_prefetch(self, paths, new_size=None) -> dict:
+        """Many videos in this process: {path: [ClipSignatures]}. Each video
+        is decoded whole (decode.load_video_parallel, threads over seeked
+        chunks), video i + 1 on a host thread while the device extracts
+        video i."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        if new_size is None:
+            new_size = self._decode_size()
+        out = {}
+        with ThreadPoolExecutor(max_workers=1) as decoder:
+            nxt = decoder.submit(decode.load_video_parallel, paths[0], new_size=new_size)
+            for i, path in enumerate(paths):
+                frames = nxt.result()
+                if i + 1 < len(paths):
+                    nxt = decoder.submit(decode.load_video_parallel, paths[i + 1],
+                                         new_size=new_size)
+                out[path] = gather_signatures(list(self.extract_frames(frames)))
+                del frames
+        return out
 
     def _decode_size(self) -> tuple[int, int] | None:
         return self.cfg.frame_resize if self.cfg.decode_at_target else None
@@ -431,17 +572,26 @@ def main(argv=None) -> None:
     p.add_argument("--new_height", type=int, default=0, help="decode resize height")
     p.add_argument("--flow_res_div", type=int, default=2,
                    help="compute flow at frame_res/div")
+    p.add_argument("--host_gray", action="store_true",
+                   help="compact upload: the host's cv2 gray at the flow grid and "
+                        "the tick frames only (ExtractionConfig.host_gray)")
+    p.add_argument("--host_crop", action="store_true",
+                   help="with --host_gray: resize and crop the tick frames on the "
+                        "host too (ExtractionConfig.host_crop)")
+    p.add_argument("--host_yuv420", action="store_true",
+                   help="with --host_crop: ship the tick frames as YUV 4:2:0 and "
+                        "rebuild BGR on the device (ExtractionConfig.host_yuv420)")
     p.add_argument("--workers", type=int, default=1,
-                   help="decode worker processes (only 1 is ported)")
+                   help="decode worker PROCESSES (> 1 with several videos: "
+                        "pipeline/mpstream.py)")
     p.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
                    help="the networks' working type (f32 accumulation either way)")
     args = p.parse_args(argv)
-    if args.workers != 1:
-        raise SystemExit("--workers > 1 (multi-process decode) is not ported yet")
 
     cfg = ExtractionConfig(fps=args.fps, clip_seconds=args.clip_time,
                            num_ticks=args.num_ticks, batch_clips=args.batch_clips,
-                           flow_res_div=args.flow_res_div)
+                           flow_res_div=args.flow_res_div, host_gray=args.host_gray,
+                           host_crop=args.host_crop, host_yuv420=args.host_yuv420)
     if args.src == "synthetic":
         os.makedirs(args.out, exist_ok=True)
         path = os.path.join(args.out, "_synthetic.mp4")
@@ -469,19 +619,28 @@ def main(argv=None) -> None:
         tsn = TwoStreamTSN.random(args.seed, tuple(args.splits), device)
     ex = Extractor(tsn, cfg, warped=not args.no_warp, device=device,
                    dtype=args.dtype)
+    new_size = new_size or ex._decode_size()
+
+    t0 = time.time()
+    if args.workers > 1 and len(videos) > 1:
+        # worker processes decode distinct videos while this process uploads
+        # and runs the batches
+        by_path = ex.extract_videos(videos, workers=args.workers, new_size=new_size)
+        how = f"{args.workers} decode workers"
+    else:
+        by_path = ex.extract_videos_prefetch(videos, new_size=new_size)
+        how = "one process, decode prefetch"
     for vid in videos:
         name = os.path.splitext(os.path.basename(vid))[0]
-        t0 = time.time()
-        frames = decode.load_video(vid, new_size=new_size or ex._decode_size())
-        sigs = gather_signatures(list(ex.extract_frames(frames)))
-        if not sigs:
-            log.warning("%s: too short for any clip (%d frames); skipped",
-                        name, len(frames))
+        if not by_path[vid]:
+            log.warning("%s: too short for any clip; skipped", name)
             continue
-        n_clips = sum(len(s.clip_numbers) for s in sigs)
-        dt = time.time() - t0
-        ex.write_csv_tree(sigs, args.out, name, vid, modelname_fmt=args.modelname)
-        print(f"{name}: {n_clips} clips in {dt:.1f}s ({n_clips / dt:.2f} clips/s)")
+        ex.write_csv_tree(by_path[vid], args.out, name, vid,
+                          modelname_fmt=args.modelname)
+    n_clips = sum(len(s.clip_numbers) for sigs in by_path.values() for s in sigs)
+    dt = time.time() - t0
+    print(f"{len(videos)} videos, {n_clips} clips in {dt:.1f}s "
+          f"({n_clips / dt:.2f} clips/s, {how})")
 
 
 if __name__ == "__main__":

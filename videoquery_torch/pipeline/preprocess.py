@@ -68,10 +68,17 @@ def _resize_crop(x: torch.Tensor, w: int, h: int, size: int,
 
 def preprocess_rgb(frames: torch.Tensor, resize_wh: tuple[int, int] = (340, 256),
                    crop_size: int = 224, crop: str = "center",
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """BGR frames [..., H, W, 3] -> mean-subtracted crops for the rgb net,
-    computed in f32 and cast to ``dtype`` (the net's working type)."""
-    x = _resize_crop(frames, resize_wh[0], resize_wh[1], crop_size, crop)
+                   dtype: torch.dtype = torch.float32,
+                   precropped: bool = False) -> torch.Tensor:
+    """BGR frames [..., H, W, 3] (uint8 or float) -> mean-subtracted crops
+    for the rgb net, computed in f32 and cast to ``dtype`` (the net's
+    working type). precropped: the host already resized and cropped them
+    (decode.resize_crop_frames, ExtractionConfig.host_crop); only the mean
+    subtraction remains."""
+    if precropped:
+        x = frames.float()
+    else:
+        x = _resize_crop(frames, resize_wh[0], resize_wh[1], crop_size, crop)
     x = x - torch.tensor(BGR_MEAN, dtype=torch.float32, device=x.device)
     return x.to(dtype)
 

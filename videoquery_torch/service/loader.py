@@ -9,8 +9,9 @@ split) — the ingest bottleneck (SURVEY.md §3.4): rows are still written
 record-by-record through the same action surface for API compatibility, but
 parsing is batched per CSV (optionally via the native C++ parser) and a
 local-index fast path (`load_index`) builds a device FeatureIndex directly
-from the tree with no API at all. (The JAX package's `--shard_out` binary
-shards are not ported yet.)
+from the tree with no API at all; `--shard_out` writes that index as
+binary `.vqidx` shards (index/persist.py), and with `--no_api` the loader
+does only that.
 """
 
 from __future__ import annotations
@@ -154,7 +155,25 @@ def main(argv=None) -> None:
     parser.add_argument("--video_path_type", default="absolute",
                         choices=["absolute", "relative"])
     parser.add_argument("--base_url", default="http://127.0.0.1:8000/")
+    parser.add_argument("--shard_out", default=None,
+                        help="also write binary .vqidx embedding shards here "
+                             "(the production index format; no API needed "
+                             "when used with --no_api)")
+    parser.add_argument("--no_api", action="store_true",
+                        help="skip the REST ingest; only build local shards")
     args = parser.parse_args(argv)
+    if args.shard_out:
+        from videoquery_torch.index.persist import save_index
+
+        # the shards are written from host arrays: the index is built on the
+        # host and never touches the card
+        index = load_index(args.src_dir, device="cpu")
+        paths = save_index(index, args.shard_out)
+        log.info("wrote %d embedding shard(s) for %d clips to %s",
+                 len(paths), index.n_clips, args.shard_out)
+        print(f"wrote {len(paths)} shard(s), {index.n_clips} clips -> {args.shard_out}")
+    if args.no_api:
+        return
     loader = DBLoader(ActionClient(HTTPTransport(args.base_url)))
     n = loader.load_tree(args.src_dir, args.duration, args.video_path_type)
     log.info("loaded %d feature rows", n)
