@@ -80,11 +80,10 @@ Phases, each printing its own lines; any failure exits non-zero:
             --shard_out --no_api, the shards onto the card in f32 and bf16
             equal to load_index of the CSVs bit for bit, and K1's top-20 on
             both the same ids. Clips/s file -> CSVs for one process streaming
-            and for 2 workers; one process with the CLI's whole-video decode
-            prefetch against streaming (two videos, then one), equal bit for
-            bit; one traced streaming run (device busy time, idle share, top
-            kernels); the compact payload's MB a clip, the shards' write and
-            load times: a JSON line {"ingest": ...} before the card's line.
+            and for 2 workers; one traced streaming run (device busy time,
+            idle share, top kernels); the compact payload's MB a clip, the
+            shards' write and load times: a JSON line {"ingest": ...} before
+            the card's line.
 9. t1       T1 (fused stride-1 Inception block) against its plain version
             at all 8 stride-1 block shapes, 3 members x 4 images, and in the
             extraction path's geometry (one member, its own x, 25 images,
@@ -1135,34 +1134,8 @@ def phase_ingest(dev, tmp: str) -> dict:
     t_mp = time.perf_counter() - t0
     assert n_clips == planned, (n_clips, planned)    # 9 + 5 at the production config
 
-    # the CLI's one-process branch (whole-video decode, the next video's on
-    # a host thread) against streaming, both without the CSVs: on the two
-    # videos, then in the other order on the longer one alone
-    def timed(fn, vs):
-        t0 = time.perf_counter()
-        out = fn(vs)
-        return time.perf_counter() - t0, out
-
-    def run_stream(vs):
-        return {v: ex.extract_video_stream(v) for v in vs}
-
-    t_pf, prefetched = timed(ex.extract_videos_prefetch, videos)
-    t_stream2, _ = timed(run_stream, videos)
-    t_stream1, _ = timed(run_stream, videos[:1])
-    t_pf1, _ = timed(ex.extract_videos_prefetch, videos[:1])
-    for v in videos:
-        for a, b in zip(prefetched[v], stream[v], strict=True):
-            assert np.array_equal(a.rgb, b.rgb) and np.array_equal(a.flow, b.flow), v
-    n_one = sum(len(s.clip_numbers) for s in stream[videos[0]])
-    prefetch = {"two_videos": {"prefetch_s": t_pf, "stream_s": t_stream2},
-                "one_video": {"clips": n_one, "stream_s": t_stream1, "prefetch_s": t_pf1}}
-    log(f"[ingest] one process, no CSVs: 2 videos prefetch {n_clips / t_pf:.2f} clips/s "
-        f"({t_pf:.2f} s), then streaming {n_clips / t_stream2:.2f} ({t_stream2:.2f} s); "
-        f"the {n_one}-clip video alone streaming {n_one / t_stream1:.2f} ({t_stream1:.2f} s), "
-        f"then prefetch {n_one / t_pf1:.2f} ({t_pf1:.2f} s); prefetch equals streaming bit "
-        f"for bit")
     # where the streaming run's time goes: one traced run over both videos
-    tr = trace(lambda: run_stream(videos), warm=False)
+    tr = trace(lambda: [ex.extract_video_stream(v) for v in videos], warm=False)
     log_trace("ingest", f"one process streaming {n_clips} clips", tr)
     stream_trace = {k: tr[k] for k in ("wall_ms", "busy_ms", "idle_share")}
 
@@ -1231,8 +1204,7 @@ def phase_ingest(dev, tmp: str) -> dict:
     result = {"card": card_line(), "clips": n_clips,
               "stream_clips_per_s": n_clips / t_stream, "stream_s": t_stream,
               "workers2_clips_per_s": n_clips / t_mp, "workers2_s": t_mp,
-              "cli_workers2_s": t_cli, "one_process": prefetch,
-              "stream_trace": stream_trace, "compact_mb_per_clip": mb_clip,
+              "cli_workers2_s": t_cli, "stream_trace": stream_trace, "compact_mb_per_clip": mb_clip,
               "full_frame_mb_per_clip": full_mb_clip, "shard_write_ms": t_write * 1e3,
               "shard_load": found, "least_cosine_vs_full_frames": cos,
               "launches": launches, "k1_query_launches": k1_launches}

@@ -204,9 +204,9 @@ def test_workers_leave_a_torch_main_alone(monkeypatch):
 
 def test_cli_workers_and_prefetch_write_the_streaming_csvs(tmp_path, monkeypatch):
     """The extraction CLI on a directory of two videos, compact uploads on,
-    on the CPU: with 2 decode workers and with the one-process decode
-    prefetch it writes the CSV files the one-process stream writes, byte
-    for byte."""
+    on the CPU: with 2 decode workers and in one process it writes the CSV
+    files that Extractor.extract_video_stream's signatures make, byte for
+    byte."""
     from videoquery_torch.pipeline import extract as te
 
     monkeypatch.setenv("VIDEOQUERY_DEVICE", "cpu")

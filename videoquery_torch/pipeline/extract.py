@@ -477,27 +477,6 @@ class Extractor:
         return extract_videos_mp(self, paths, workers=workers,
                                  new_size=new_size)
 
-    def extract_videos_prefetch(self, paths, new_size=None) -> dict:
-        """Many videos in this process: {path: [ClipSignatures]}. Each video
-        is decoded whole (decode.load_video_parallel, threads over seeked
-        chunks), video i + 1 on a host thread while the device extracts
-        video i."""
-        from concurrent.futures import ThreadPoolExecutor
-
-        if new_size is None:
-            new_size = self._decode_size()
-        out = {}
-        with ThreadPoolExecutor(max_workers=1) as decoder:
-            nxt = decoder.submit(decode.load_video_parallel, paths[0], new_size=new_size)
-            for i, path in enumerate(paths):
-                frames = nxt.result()
-                if i + 1 < len(paths):
-                    nxt = decoder.submit(decode.load_video_parallel, paths[i + 1],
-                                         new_size=new_size)
-                out[path] = gather_signatures(list(self.extract_frames(frames)))
-                del frames
-        return out
-
     def _decode_size(self) -> tuple[int, int] | None:
         return self.cfg.frame_resize if self.cfg.decode_at_target else None
 
@@ -628,8 +607,11 @@ def main(argv=None) -> None:
         by_path = ex.extract_videos(videos, workers=args.workers, new_size=new_size)
         how = f"{args.workers} decode workers"
     else:
-        by_path = ex.extract_videos_prefetch(videos, new_size=new_size)
-        how = "one process, decode prefetch"
+        # one process: each video streamed, decoded on a host thread while
+        # the device runs its batches, in a few batches of host memory
+        # (decoding each whole video ahead showed no resolved gain: PERF.md)
+        by_path = {vid: ex.extract_video_stream(vid, new_size) for vid in videos}
+        how = "one process streaming"
     for vid in videos:
         name = os.path.splitext(os.path.basename(vid))[0]
         if not by_path[vid]:
