@@ -106,6 +106,20 @@ Phases, each printing its own lines; any failure exits non-zero:
             the shift read from device memory, 12 cases, each equal to
             torch.roll; T2 and torch.roll over 100 back-to-back calls, and
             the host cost of each piece of a T2 call.
+11. flow quality  the flow-quality gate (videoquery_torch.tools.
+            flow_quality) at seed 0: its default table (corpus v4, 40 clips
+            of 30 frames at 128x176: the full-resolution gather baseline and
+            the K2/K3 rows at full, half and quarter resolution), then
+            --final --corpus 3 --scale 2 (24 clips at 256x352, five
+            production candidates on K2/K3), f32 random seeded nets; every
+            row's retrieval and EPE (mean, p90, object, background) finite,
+            the production row of --final at EPE <= 0.26 (the JAX package's
+            gate); K2's route at each row's grids; K2's and K3's launches in
+            each run (counts zeroed just before it); then K2 and K3 against
+            their plain versions on the operands of their first call at
+            each caller, shape and window in those runs (K2's tiles route
+            at 128x176 and K3's affine residual among them); a JSON line
+            {"flow_quality": ...} before the card's line.
 
 Beside each kernel's time the kernels line gives its bound on an H100 SXM
 (the larger of its compulsory bytes over 3.35 TB/s and its operations over
@@ -1395,6 +1409,159 @@ def phase_t2(dev) -> dict:
             **bound(2.0 * x.numel() * 4, 0.0, PEAK_F32)}
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+# the production row's EPE gate (docs/TUNING.md:265, :285): the JAX package's
+# --final --corpus 3 --scale 2 run gave 0.249-0.253
+FQ_EPE_MAX = 0.26
+FQ_PRODUCTION = {"default": "pallas half-res (production)",
+                 "final": "warm g3 init homog+rescue"}
+FQ_REFERENCE = {"default": "baseline (xla full-res s5w5i30)",
+                "final": "cold homog (quality ref)"}
+
+
+def keep_kernel_operands(kept: dict) -> callable:
+    """Put a recorder in front of K2 and K3 where the flow path calls them
+    (the names tvl1_flow and extract import): it calls the kernel's own
+    wrapper, which counts and launches as before, and first keeps a copy of
+    the operands of the first call at each (kernel, caller, shape, window,
+    mode) in `kept` (a few GB on the card for the gate's two runs). Returns
+    the function that takes the recorders away."""
+    import inspect
+
+    import torch
+
+    from videoquery_torch.kernels import tvl1_flow
+    from videoquery_torch.kernels import tvl1_level as k2
+    from videoquery_torch.kernels import window_warp as k3
+    from videoquery_torch.pipeline import extract
+
+    def recorder(kind, fn):
+        sig = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            bound_args = sig.bind(*args, **kwargs)
+            bound_args.apply_defaults()
+            ops = dict(bound_args.arguments)
+            tensors = [t for t in ops.values() if torch.is_tensor(t)]
+            key = (kind, sys._getframe(1).f_code.co_qualname, tuple(tensors[0].shape),
+                   *(repr(x) for x in ops.values() if not torch.is_tensor(x)))
+            if key not in kept:
+                kept[key] = {k: x.clone() if torch.is_tensor(x) else x
+                             for k, x in ops.items()}
+            return fn(*args, **kwargs)
+        return call
+
+    names = [(tvl1_flow, "tvl1_level", recorder("K2", k2.tvl1_level)),
+             (tvl1_flow, "window_warp", recorder("K3", k3.window_warp)),
+             (extract, "window_warp", recorder("K3", k3.window_warp))]
+    before = [(mod, name, getattr(mod, name)) for mod, name, _ in names]
+    for mod, name, fn in names:
+        setattr(mod, name, fn)
+    return lambda: [setattr(mod, name, fn) for mod, name, fn in before]
+
+
+def check_kept_operands(kept: dict) -> dict:
+    """K2 and K3 against their plain versions on the operands the gate gave
+    them (keep_kernel_operands): K2 within FLOW_ATOL_PX, K3 within RTOL and
+    ATOL. These launches come after the gate's counts were read."""
+    from videoquery_torch.kernels import tvl1_level as k2
+    from videoquery_torch.kernels import window_warp as k3
+
+    out = {"K2": {"err": 0.0, "cases": []}, "K3": {"err": 0.0, "cases": []}}
+    for key, ops in kept.items():
+        kind, caller, shape = key[:3]
+        n, h, w = shape
+        if kind == "K2":
+            d = ops["max_disp"]
+            u, v = k2.tvl1_level(**ops)
+            ur, vr = k2.tvl1_level_reference(**ops)
+            err = max(float((u - ur).abs().max()), float((v - vr).abs().max()))
+            what = (f"{caller}: {n} pairs {h}x{w} d={d} mode {k2.warp_mode(ops['p'])}, "
+                    f"{ops['p'].n_warps} warps x {ops['p'].n_iters} iters, route "
+                    f"{k2.level_plan(n, h, w, d).route}")
+            if not err <= FLOW_ATOL_PX:
+                raise AssertionError(f"K2 at the gate's {what}: max |flow diff| {err:.3e} px "
+                                     f"beyond {FLOW_ATOL_PX} px")
+        else:
+            d = ops["d"]
+            errs: list[float] = []
+            what = f"{caller}: {n} x {h}x{w} d={d} separable={ops['separable']}"
+            check_close(f"K3 at the gate's {what}", k3.window_warp(**ops),
+                        k3.window_warp_reference(**ops), errs)
+            err = errs[0]
+        out[kind]["err"] = max(out[kind]["err"], err)
+        out[kind]["cases"].append(f"{what}: {err:.3e}")
+        log(f"[flow_quality] {kind} against its plain version at {what}: max abs err "
+            f"{err:.3e}")
+    return out
+
+
+def phase_flow_quality() -> dict:
+    """The flow-quality gate (videoquery_torch.tools.flow_quality) on the
+    card: its default table (corpus 4, scale 1, seed 0: the gather baseline
+    and three K2/K3 rows), then --final --corpus 3 --scale 2 (seed 0: five
+    K2/K3 rows). Each run's K2 and K3 counts are set to 0 just before it
+    and read just after; both must launch. Every row's numbers finite; the
+    production row of --final within the EPE gate. Then K2 and K3 against
+    their plain versions on the operands of their first call at each
+    caller, shape and window in those runs (K2's tiles route at 128x176 and
+    K3's affine residual among them)."""
+    from videoquery_torch.kernels import tvl1_level as k2
+    from videoquery_torch.kernels import window_warp as k3
+    from videoquery_torch.tools import flow_quality as fq
+
+    runs, kept = {}, {}
+    for tag, argv in (("default", ["--seeds", "0"]),
+                      ("final", ["--final", "--corpus", "3", "--scale", "2", "--seeds", "0"])):
+        log(f"[flow_quality] {tag}: python -m videoquery_torch.tools.flow_quality "
+            f"{' '.join(argv)}")
+        restore = keep_kernel_operands(kept)
+        try:
+            k2.LAUNCHES = k3.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = fq.run(argv + ["--device", "cuda"])
+            seconds = time.perf_counter() - t0
+            launches = {"K2": k2.LAUNCHES, "K3": k3.LAUNCHES}
+        finally:
+            restore()
+        if not (launches["K2"] and launches["K3"]):
+            raise AssertionError(f"flow quality {tag}: K2 or K3 never launched {launches}")
+        for row in out["rows"]:
+            nums = [row["retrieval"]] + [row[k] for k in ("epe_mean", "epe_p90", "epe_obj",
+                                                          "epe_bg")]
+            if not all(x == x and abs(x) < float("inf") for x in nums):
+                raise AssertionError(f"flow quality {tag}: {row['name']}: {nums}")
+            routes = ", ".join(f"{r['h']}x{r['w']} d={r['d']} {r['route']}"
+                               for r in row.get("k2_routes", []))
+            log(f"[flow_quality] {tag}: {row['name']}: K2 routes {routes or 'none (gather)'}")
+        rows = {r["name"]: r for r in out["rows"]}
+        prod, ref = rows[FQ_PRODUCTION[tag]], rows[FQ_REFERENCE[tag]]
+        log(f"[flow_quality] {tag}: {seconds:.1f} s (operands kept included), K2 "
+            f"{launches['K2']} and K3 {launches['K3']} launches; production EPE "
+            f"{prod['epe_mean']:.4f}, retrieval {prod['retrieval']:.3f} against "
+            f"{ref['name']}'s {ref['retrieval']:.3f} (EPE {ref['epe_mean']:.4f})")
+        if tag == "final" and not prod["epe_mean"] <= FQ_EPE_MAX:
+            raise AssertionError(f"flow quality: {prod['name']} EPE {prod['epe_mean']:.4f} "
+                                 f"above the gate {FQ_EPE_MAX}")
+        runs[tag] = {"seconds": seconds, "launches": launches, "rows": out["rows"],
+                     "cosine_vs_baseline": out.get("cosine_vs_baseline")}
+    t0 = time.perf_counter()
+    checked = check_kept_operands(kept)
+    kept.clear()
+    # the shapes the gate must have given the kernels
+    if not any("route tiles" in c for c in checked["K2"]["cases"]):
+        raise AssertionError("flow quality: no K2 call on the tiles route was checked")
+    if not any(c.startswith("_affine_warp_rollwindow") for c in checked["K3"]["cases"]):
+        raise AssertionError("flow quality: no affine residual warp on K3 was checked")
+    log(f"[flow_quality] {len(checked['K2']['cases'])} K2 and {len(checked['K3']['cases'])} "
+        f"K3 operand sets agree with the plain versions (K2 max |flow diff| "
+        f"{checked['K2']['err']:.3e} px, K3 max abs err {checked['K3']['err']:.3e}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs["checked"] = checked
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -1442,8 +1609,10 @@ def main() -> int:
         ingest = phase_ingest(dev, tmp)
     block = phase_t1(dev)
     rollp = phase_t2(dev)
+    quality = phase_flow_quality()
 
     print(json.dumps({"ingest": ingest}))
+    print(json.dumps({"flow_quality": quality}))
     log(card_line())  # the card and its power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "K1 fused query scoring (avg+counts and scores epilogues)",
@@ -1467,7 +1636,8 @@ def main() -> int:
     }, {
         "name": "K2 TV-L1 pyramid level (clamp, window warp, linearise, primal-dual)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
-        "launches": ext["launches"]["K2"], "max_abs_err": level["err"],
+        "launches": ext["launches"]["K2"],
+        "max_abs_err": max(level["err"], quality["checked"]["K2"]["err"]),
         "ms": level["ms"], "plain_ms": level["plain_ms"],
         "bound_ms": level["bound_ms"], "bound_by": level["bound_by"], "library_ms": None,
         "shape": "400 pairs 128x128, d=6, 2 warps x 10 iters, warped+separable",
@@ -1476,10 +1646,15 @@ def main() -> int:
         "batch_ms": ext["step_ms"], "clip_bytes_equal_cpu": ext["same"],
         "bf16_batch_trace": ext["bf16_batch_trace"],
         "launches_ingest_path": ingest["launches"]["K2"],
+        "launches_flow_quality_default": quality["default"]["launches"]["K2"],
+        "launches_flow_quality_final": quality["final"]["launches"]["K2"],
+        "max_abs_err_flow_quality": quality["checked"]["K2"]["err"],
+        "flow_quality_checked": quality["checked"]["K2"]["cases"],
     }, {
         "name": "K3 window warp (separable and full)",
         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
-        "launches": ext["launches"]["K3"], "max_abs_err": warp["err"],
+        "launches": ext["launches"]["K3"],
+        "max_abs_err": max(warp["err"], quality["checked"]["K3"]["err"]),
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"], "library_ms": None,
         "shape": "400 x 128x128, d=4, separable",
@@ -1487,6 +1662,10 @@ def main() -> int:
         "full_mode_library_call": "F.grid_sample, bilinear, border padding",
         "host_us_48x64": warp["host_us"],
         "launches_ingest_path": ingest["launches"]["K3"],
+        "launches_flow_quality_default": quality["default"]["launches"]["K3"],
+        "launches_flow_quality_final": quality["final"]["launches"]["K3"],
+        "max_abs_err_flow_quality": quality["checked"]["K3"]["err"],
+        "flow_quality_checked": quality["checked"]["K3"]["cases"],
     }, {
         "name": "T1 fused stride-1 Inception block (bf16: an x-tile and two 3x3 wgmma "
                 "implicit-GEMM launches per call)",

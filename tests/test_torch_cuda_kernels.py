@@ -18,13 +18,14 @@ import re
 import numpy as np
 import pytest
 import torch
-from _torch_cases import block_params, make_pair, relu_input
+from _torch_cases import block_params, make_pair, relu_input, texture
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from videoquery_torch.kernels import _launch
 from videoquery_torch.kernels import inception_block as t1
 from videoquery_torch.kernels import query as k1
 from videoquery_torch.kernels import roll as t2
+from videoquery_torch.kernels import tvl1_flow
 from videoquery_torch.kernels import tvl1_level as k2
 from videoquery_torch.kernels import window_warp as k3
 from videoquery_torch.kernels.tvl1 import TVL1Params
@@ -165,6 +166,29 @@ def test_k2_matches_plain_version(mode, shape):
     assert other and other <= theirs, (other - theirs, theirs)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 176, 6), (64, 88, 6), (32, 44, 3)])
+@pytest.mark.parametrize("mode", ["warped_separable", "image_separable"])
+def test_k2_on_the_flow_gate_grids(mode, shape):
+    """K2 against its plain version, at most 1e-3 px of flow apart, on the
+    flow-quality gate's grids: 128x176 (the full-resolution rows' finest
+    level, the tiles route), 64x88 and 32x44 (the half-resolution rows, the
+    band route); the production mode and the image mode of TVL1Params()'s
+    rows."""
+    needs_card()
+    h, w, d = shape
+    plan = k2.level_plan(4, h, w, d)
+    assert plan.route == ("tiles" if w > 128 else "band")
+    p = TVL1Params(n_scales=1, n_warps=2, n_iters=10, **K2_MODES[mode])
+    args = [torch.from_numpy(a).cuda() for a in make_pair(h, w, seed=1, n=4, flow=d / 2)]
+    launches = k2.LAUNCHES
+    u, v = k2.tvl1_level(*args, p, d)
+    assert k2.LAUNCHES == launches + 1
+    ur, vr = k2.tvl1_level_reference(*args, p, d)
+    assert float((u - ur).abs().max()) <= 1e-3 and float((v - vr).abs().max()) <= 1e-3
+    assert torch.isfinite(u).all() and torch.isfinite(v).all()
+
+
 # -- K3 -----------------------------------------------------------------------
 
 @pytest.mark.cuda
@@ -187,6 +211,60 @@ def test_k3_matches_plain_version(separable, hw):
     assert k3.LAUNCHES == launches + 1
     want = k3.window_warp_reference(img, u, v, 4, separable)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,jumps", [(16, (-2, -1, 1, 2)), (24, (-3, -2, 2, 3))])
+def test_k3_advects_a_warm_start(d, jumps):
+    """K3 at the warm advection's windows (d=16 for groups of 5, d=24 for
+    7) on advection-like fields: the image is a smooth flow of up to 8 px,
+    the displacement -j times it for a signed frame distance j a pair, u and
+    v stacked as extract._pair_flow_uv stacks them."""
+    needs_card()
+    rng = np.random.default_rng(2)
+    n, h, w = 8, 64, 88
+    u0 = (texture(rng, n, h, w) * 16 - 8).astype(np.float32)
+    v0 = (texture(rng, n, h, w) * 16 - 8).astype(np.float32)
+    j = np.resize(np.asarray(jumps, np.float32), n)[:, None, None]
+    img = np.concatenate([u0, v0])
+    du = np.concatenate([-j * u0] * 2)
+    dv = np.concatenate([-j * v0] * 2)
+    assert np.abs(du).max() > d - 4
+    img, du, dv = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (img, du, dv))
+    launches = k3.LAUNCHES
+    got = k3.window_warp(img, du, dv, d)
+    assert k3.LAUNCHES == launches + 1
+    torch.testing.assert_close(got, k3.window_warp_reference(img, du, dv, d),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_k3_warps_an_affine_residual():
+    """K3 at d=4 on the affine camera's residual field (the displacement of
+    a zoom, rotation and pan less its integer value at the frame's centre),
+    as tvl1_flow._affine_warp_rollwindow calls it, against its plain version;
+    and the whole affine apply_camera on the card against the CPU's."""
+    needs_card()
+    rng = np.random.default_rng(3)
+    n, h, w = 6, 128, 128
+    img = torch.from_numpy(make_pair(h, w, seed=3, n=n)[0]).cuda()
+    A = torch.from_numpy((rng.normal(size=(n, 2, 3)) * [0.02, 0.02, 9.0]).astype(np.float32))
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    a = A[:, :, :, None, None]
+    t = torch.round(torch.stack([a[:, 0, 0] * (w - 1) / 2 + a[:, 0, 1] * (h - 1) / 2 + a[:, 0, 2],
+                                 a[:, 1, 0] * (w - 1) / 2 + a[:, 1, 1] * (h - 1) / 2 + a[:, 1, 2]],
+                                1))
+    du = (a[:, 0, 0] * xs + a[:, 0, 1] * ys + a[:, 0, 2] - t[:, 0]).contiguous().cuda()
+    dv = (a[:, 1, 0] * xs + a[:, 1, 1] * ys + a[:, 1, 2] - t[:, 1]).contiguous().cuda()
+    assert float(du.abs().max()) > 1.0
+    launches = k3.LAUNCHES
+    got = k3.window_warp(img, du, dv, 4)
+    assert k3.LAUNCHES == launches + 1
+    torch.testing.assert_close(got, k3.window_warp_reference(img, du, dv, 4),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(tvl1_flow.apply_camera(img, A.cuda()).cpu(),
+                               tvl1_flow.apply_camera(img.cpu(), A), rtol=RTOL, atol=ATOL)
 
 
 # -- T1 -----------------------------------------------------------------------

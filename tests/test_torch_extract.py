@@ -241,9 +241,11 @@ def test_cli_bf16_csvs_ingest_and_meet_the_bf16_criterion(tmp_path, monkeypatch)
 
 def test_extractor_refuses_what_is_not_ported():
     """What the port refuses: another blob than global_pool (it would label
-    global_pool vectors wrongly), the affine camera, another working type,
-    and compact uploads out of order (host crop without host gray), in the
-    config and on the CLI before anything is written."""
+    global_pool vectors wrongly), another working type, and compact uploads
+    out of order (host crop without host gray), in the config and on the CLI
+    before anything is written, and a flow solver by another name. The affine camera is no longer refused: an
+    Extractor takes it (tests/test_torch_gather_tvl1.py holds its batch
+    against the JAX package's)."""
     from videoquery_torch.kernels.tvl1 import TVL1Params
 
     tsn = TwoStreamTSN.random(0, splits=(1,), device="cpu")
@@ -251,14 +253,23 @@ def test_extractor_refuses_what_is_not_ported():
         ExtractionConfig(host_crop=True)
     with pytest.raises(ValueError):
         te.Extractor(tsn, ExtractionConfig(feature_blob="fc-action"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        te.Extractor(tsn, ExtractionConfig(), tvl1=TVL1Params(camera_model="affine"),
-                     device="cpu")
+    ex = te.Extractor(tsn, ExtractionConfig(), tvl1=TVL1Params(camera_model="affine"),
+                      device="cpu")
+    assert ex.tvl1.camera_model == "affine" and ex.flow_impl == "pallas"
     with pytest.raises(ValueError, match="host_yuv420 requires host_crop"):
         te.main(["synthetic", "--out", "unused", "--host_gray", "--host_yuv420"])
     assert not os.path.exists("unused")
     with pytest.raises(ValueError):
         te.Extractor(tsn, ExtractionConfig(), device="cpu", dtype="float16")
+    # a flow solver by another name: the plan and the step refuse it too,
+    # so a direct caller cannot index all-pairs flow with pair positions
+    with pytest.raises(ValueError, match="flow_impl"):
+        te.Extractor(tsn, ExtractionConfig(), device="cpu", flow_impl="gather")
+    with pytest.raises(ValueError, match="flow_impl"):
+        te.step_plan(20, ExtractionConfig(), "gather", "cpu")
+    with pytest.raises(ValueError, match="flow_impl"):
+        te.extract_step(tsn, torch.zeros((1, 20, 8, 8, 3), dtype=torch.uint8), None,
+                        ExtractionConfig(), True, TVL1Params(), flow_impl="gather")
 
 
 def test_extraction_imports_without_jax():
@@ -278,6 +289,7 @@ def test_extraction_imports_without_jax():
             "       or m == 'tools' or m.startswith('tools.')]\n"
             "assert not bad, bad\n"
             "assert 'videoquery_torch.tools.inception_block_bench' in sys.modules\n"
+            "assert 'videoquery_torch.tools.flow_quality' in sys.modules\n"
             "assert '_torch_cases' in sys.modules\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -300,6 +312,7 @@ def imported_modules(path: str) -> set[str]:
 
 
 @pytest.mark.parametrize("where", ["chip_smoke.py", "videoquery_torch",
+                                   "videoquery_torch/tools/flow_quality.py",
                                    "tests/test_torch_cuda_kernels.py", "tests/_torch_cases.py"])
 def test_port_sources_import_nothing_of_the_jax_package(where):
     """No import statement in chip_smoke.py, any module of the port, the

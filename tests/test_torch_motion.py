@@ -1,5 +1,5 @@
 """The port's camera motion (videoquery_torch.kernels.motion and the camera
-half of kernels.tvl1_flow) against the JAX package.
+half of kernels.tvl1_flow, homography and affine) against the JAX package.
 
 Same numpy-seeded inputs through both; the JAX warps reach the Pallas
 window warp, run in interpret mode. Tolerances: the median and the integer
@@ -133,8 +133,27 @@ def test_roll_pairs_matches_jnp_roll():
 
 
 def test_affine_camera_is_refused():
+    """The affine camera, once refused, now equals the JAX package's: its A
+    [N, 2, 3] (pan + 6 affine LK iterations on K3's plain version, scaled
+    from the 48x64 camera grid to native coords) and the warped flow of the
+    pyramid after it (atol 1e-3 px for all of it, 1e-4 for >= 99.9%, as
+    tests/test_torch_flow.py holds the homography's)."""
+    import dataclasses
+
+    from videoquery.kernels.tvl1 import TVL1Params as JaxTVL1Params
     from videoquery_torch.kernels.tvl1 import TVL1Params
 
-    t = torch.zeros((1, 48, 64))
-    with pytest.raises(NotImplementedError):
-        tf.estimate_camera(t, t, TVL1Params(camera_model="affine"))
+    i0, i1 = pan_zoom_pairs(3, h=64, w=128, seed=6)
+    jp = dataclasses.replace(JAX_PRODUCTION, camera_model="affine", n_scales=2)
+    assert isinstance(jp, JaxTVL1Params)
+    p = TVL1Params(**{f.name: getattr(jp, f.name) for f in dataclasses.fields(jp)})
+    with pltpu.force_tpu_interpret_mode():
+        uj, vj, aj = jt.tvl1_warped_flow_pallas_cam(jnp.asarray(i0), jnp.asarray(i1), jp)
+    u, v, a = tf.tvl1_warped_flow_cam(torch.from_numpy(i0), torch.from_numpy(i1), p)
+    assert a.shape == (3, 2, 3)
+    np.testing.assert_allclose(a.numpy(), np.asarray(aj), rtol=RTOL, atol=ATOL)
+    assert np.abs(np.asarray(aj)[:, :, 2]).max() > 1.0     # the pan was found
+    for got, want in ((u, uj), (v, vj)):
+        got, want = got.numpy(), np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+        assert np.isclose(got, want, rtol=1e-4, atol=1e-4).mean() >= 0.999

@@ -1,12 +1,14 @@
 """Global (camera) motion for warped optical flow.
 
-Port of the homography half of ``videoquery/kernels/motion.py``: the
-integer pan of a pair from one grouped cross-correlation, and a direct
-8-parameter homography fit (Gauss-Newton on intensities, Lucas-Kanade)
+Port of ``videoquery/kernels/motion.py``: the integer pan of a pair from
+one grouped cross-correlation, and direct 6-parameter affine and
+8-parameter homography fits (Gauss-Newton on intensities, Lucas-Kanade)
 with a pluggable batched warp. Homographies are in normalized coordinates
-(xn = 2x/W - 1), so one fit applies on any grid of the same field of view.
-The affine model (``lk_affine_batch``, ``estimate_affine``) is not
-production and is not ported.
+(xn = 2x/W - 1), so one fit applies on any grid of the same field of view;
+an affine fit is in its grid's pixel coordinates
+(``affine_to_native_coords`` moves it to another grid). The single-pair
+fits ``estimate_affine`` and ``lk_affine`` are not ported: only the JAX
+package's tests call them.
 
 Numbers: the cross-correlation is a convolution and its argmax moves under
 TF32, so callers turn TF32 off (the extractor does); ``jnp.median`` of an
@@ -54,6 +56,69 @@ def global_translation(c0: torch.Tensor, c1: torch.Tensor,
     dy = idx // (2 * m + 1) - m
     dx = idx % (2 * m + 1) - m
     return torch.stack([-dx, -dy], dim=1).to(torch.int32)
+
+
+def affine_to_native_coords(A: torch.Tensor, rx: float, ry: float) -> torch.Tensor:
+    """An affine fitted at coarse-grid coordinates (values already in native
+    px) at native coordinates, x_c = x_n / rx: the linear terms divide by
+    the ratio, the translation stays. [2, 3] or [N, 2, 3]."""
+    return A * torch.tensor([1.0 / rx, 1.0 / ry, 1.0], dtype=torch.float32,
+                            device=A.device)
+
+
+def affine_camera(A: torch.Tensor, t: torch.Tensor, hw: tuple[int, int],
+                  coarse_hw: tuple[int, int]) -> torch.Tensor:
+    """The camera of an affine LK fit A [N, 2, 3] made on a coarse grid of a
+    pair pre-shifted by the integer pan t [N, 2] (dx, dy): the pan added,
+    the values scaled from coarse to native px per axis, then the fit's
+    coarse coords moved to the native (h, w) grid's coords."""
+    A = A.clone()
+    A[:, 0, 2] += t[:, 0].float()
+    A[:, 1, 2] += t[:, 1].float()
+    sx = hw[1] / coarse_hw[1]
+    sy = hw[0] / coarse_hw[0]
+    A = A * torch.tensor([sx, sy], dtype=torch.float32, device=A.device)[:, None]
+    return affine_to_native_coords(A, sx, sy)
+
+
+def affine_to_warp(A: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Background-motion affine -> the source-coordinate affine of
+    warp.warp_affine: src = [x, y] + A @ [x, y, 1]."""
+    return A + torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=torch.float32,
+                            device=A.device)
+
+
+def lk_affine_batch(c0: torch.Tensor, c1: torch.Tensor, warp_fn: WarpFn,
+                    n_iters: int = 8, huber_delta: float = 3.0) -> torch.Tensor:
+    """Batched direct affine alignment of c1 (pre-translated) onto c0, both
+    f32 [N, H, W]; warp_fn(img, u, v) warps a batch by +(u, v). Returns A
+    [N, 2, 3] with u(x, y) = A @ [x, y, 1] in this grid's pixel coords."""
+    n, h, w = c0.shape
+    xn, yn, sxn, syn = _normalized_grid(h, w, c0.device)
+    gy = torch.gradient(c0, dim=1)[0]
+    gx = torch.gradient(c0, dim=2)[0]
+    sd = torch.stack([gx * xn, gx * yn, gx, gy * xn, gy * yn, gy], dim=1)  # [N, 6, H, W]
+    eye = 1e-6 * torch.eye(6, dtype=torch.float32, device=c0.device)
+    p = torch.zeros((n, 6), dtype=torch.float32, device=c0.device)
+    for _ in range(n_iters):
+        pp = p[:, :, None, None]
+        u = pp[:, 0] * xn + pp[:, 1] * yn + pp[:, 2]
+        v = pp[:, 3] * xn + pp[:, 4] * yn + pp[:, 5]
+        r = warp_fn(c1, u.contiguous(), v.contiguous()) - c0
+        absr = r.abs()
+        # the residuals' scale from a 2x2-strided subsample, as the JAX
+        # package takes it
+        med = median_midpoint(absr[:, ::2, ::2].reshape(n, -1))
+        thresh = huber_delta * med[:, None, None] + 1e-6
+        wgt = torch.clamp(thresh / (absr + 1e-8), max=1.0)
+        sw = sd * wgt[:, None]
+        hess = torch.einsum("nihw,njhw->nij", sw, sd) + eye
+        b = torch.einsum("nihw,nhw->ni", sw, r)
+        p = p - torch.linalg.solve(hess, b[..., None])[..., 0]
+    return torch.stack([
+        torch.stack([p[:, 0] * sxn, p[:, 1] * syn, p[:, 2] - p[:, 0] - p[:, 1]], dim=1),
+        torch.stack([p[:, 3] * sxn, p[:, 4] * syn, p[:, 5] - p[:, 3] - p[:, 4]], dim=1),
+    ], dim=1)
 
 
 def homography_params(hn: torch.Tensor) -> torch.Tensor:

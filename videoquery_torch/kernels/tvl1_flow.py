@@ -2,27 +2,35 @@
 
 Port of the host half of ``videoquery/kernels/tvl1_pallas.py``: the pyramid
 (``tvl1_flow_pallas``), the warm-started finest-level refinement
-(``tvl1_flow_pallas_warm``), the homography camera (estimate, refine,
-apply) and the warped variants. Every pyramid level runs on K2
-(``kernels/tvl1_level.py``) and every warp of the camera path on K3
-(``kernels/window_warp.py``): a CUDA tensor launches the kernels, a CPU
-tensor takes their plain versions. Resizes are JAX's linear resize
-(``kernels/resize.py``). The window shrinks with pyramid scale:
+(``tvl1_flow_pallas_warm``), the camera (estimate, refine, apply; an
+affine A [N, 2, 3] or a homography Hn [N, 3, 3], as
+``TVL1Params.camera_model`` says) and the warped variants. Every pyramid
+level runs on K2 (``kernels/tvl1_level.py``) and every warp of the camera
+path on K3 (``kernels/window_warp.py``): a CUDA tensor launches the
+kernels, a CPU tensor takes their plain versions. Resizes are JAX's linear
+resize (``kernels/resize.py``). The window shrinks with pyramid scale:
 d = max(2, round(max_disp * scale_step**level)).
+
+``kernels/tvl1.py`` has functions of the same names (``tvl1_flow``,
+``tvl1_warped_flow``): the gather-warp baseline, as the JAX package has
+``tvl1.py`` beside ``tvl1_pallas.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from videoquery_torch.kernels.motion import (global_translation,
+from videoquery_torch.kernels.motion import (affine_camera,
+                                             global_translation,
                                              homography_displacement,
                                              homography_params,
                                              homography_translate,
+                                             lk_affine_batch,
                                              lk_homography_batch)
 from videoquery_torch.kernels.resize import resize2
 from videoquery_torch.kernels.tvl1 import TVL1Params, _pyramid_shapes
 from videoquery_torch.kernels.tvl1_level import tvl1_level
+from videoquery_torch.kernels.warp import pixel_grid, roll_pairs
 from videoquery_torch.kernels.window_warp import window_warp
 
 
@@ -72,16 +80,6 @@ def tvl1_flow_warm(i0, i1, u0, v0, p: TVL1Params = TVL1Params(),
                           p, max_disp)
 
 
-def roll_pairs(img: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor) -> torch.Tensor:
-    """Per-pair circular shift: out[n, y, x] = img[n, (y + ty[n]) % H,
-    (x + tx[n]) % W] (jnp.roll by -t, one shift per pair)."""
-    n, h, w = img.shape
-    rows = (torch.arange(h, device=img.device)[None, :] + ty[:, None].long()) % h
-    cols = (torch.arange(w, device=img.device)[None, :] + tx[:, None].long()) % w
-    out = torch.gather(img, 1, rows[:, :, None].expand(n, h, w))
-    return torch.gather(out, 2, cols[:, None, :].expand(n, h, w))
-
-
 def rollwindow_warp_fields(img, du, dv, d: int = 4):
     """Warp img by displacement fields of any size: an integer per-pair roll
     by the field's centre value, then the window warp (K3) for the
@@ -94,43 +92,65 @@ def rollwindow_warp_fields(img, du, dv, d: int = 4):
                        (dv - ty[:, None, None]).contiguous(), d)
 
 
-def _check_homography(p: TVL1Params) -> None:
-    if p.camera_model != "homography":
-        raise NotImplementedError(
-            f"camera_model={p.camera_model!r}: the port implements the "
-            "production 'homography' camera only")
+def _affine_warp_rollwindow(img: torch.Tensor, A: torch.Tensor, d: int = 4) -> torch.Tensor:
+    """Warp img [N, H, W] by displacement affines A [N, 2, 3]
+    (src = [x, y] + A @ [x, y, 1]): an integer per-pair roll by the
+    displacement at the frame's centre, then K3 for the residual (zoom and
+    rotation), which must stay within +-d. The roll is circular: the wrapped
+    band, at most |t| wide, touches only the frame's edges."""
+    n, h, w = img.shape
+    ys, xs = pixel_grid(h, w, img.device)
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    t = torch.round(torch.stack([A[:, 0, 0] * cx + A[:, 0, 1] * cy + A[:, 0, 2],
+                                 A[:, 1, 0] * cx + A[:, 1, 1] * cy + A[:, 1, 2]], 1))
+    rolled = roll_pairs(img, t[:, 0], t[:, 1])
+    a = A[:, :, :, None, None]
+    du = (a[:, 0, 0] * xs + a[:, 0, 1] * ys + a[:, 0, 2]) - t[:, 0, None, None]
+    dv = (a[:, 1, 0] * xs + a[:, 1, 1] * ys + a[:, 1, 2]) - t[:, 1, None, None]
+    return window_warp(rolled, du.contiguous(), dv.contiguous(), d)
 
 
 def estimate_camera(i0, i1, p: TVL1Params) -> torch.Tensor:
-    """Per-pair camera homography Hn [N, 3, 3]: integer pan from the
-    cross-correlation on the coarse grid p.coarse_hw, then 6 LK iterations
-    on the pan-compensated pair (warps on K3, d=4)."""
-    _check_homography(p)
+    """Per-pair camera motion: integer pan from the cross-correlation on the
+    coarse grid p.coarse_hw, then 6 LK iterations on the pan-compensated
+    pair (warps on K3, d=4). p.camera_model "homography" gives Hn
+    [N, 3, 3] in normalized coords; "affine" gives the displacement affine
+    A [N, 2, 3] in i0's native pixel coords."""
     coarse_hw = p.coarse_hw
     c0 = resize2(i0, coarse_hw).contiguous()
     c1 = resize2(i1, coarse_hw).contiguous()
     t = global_translation(c0, c1, max_shift=12)          # int32 [N, 2] (u, v)
     c1t = roll_pairs(c1, t[:, 0], t[:, 1])
-    hn = lk_homography_batch(c0, c1t, lambda img, u, v: window_warp(img, u, v, 4),
-                             n_iters=6)
-    return homography_translate(hn, t[:, 0].float(), t[:, 1].float(),
-                                coarse_hw[1], coarse_hw[0])
+
+    def warp_fn(img, u, v):
+        return window_warp(img, u, v, 4)
+
+    if p.camera_model == "homography":
+        hn = lk_homography_batch(c0, c1t, warp_fn, n_iters=6)
+        return homography_translate(hn, t[:, 0].float(), t[:, 1].float(),
+                                    coarse_hw[1], coarse_hw[0])
+    return affine_camera(lk_affine_batch(c0, c1t, warp_fn, n_iters=6), t,
+                         tuple(i0.shape[1:]), coarse_hw)
 
 
 def refine_camera(i0, i1, p: TVL1Params, hn0: torch.Tensor,
                   n_iters: int = 3) -> torch.Tensor:
     """Refine a neighbour pair's homography hn0 on this pair: LK warm-started
-    at hn0, warps by roll + window (so large pans stay in the window)."""
+    at hn0, warps by roll + window (so large pans stay in the window).
+    Homographies only, as in the JAX package."""
     c0 = resize2(i0, p.coarse_hw).contiguous()
     c1 = resize2(i1, p.coarse_hw).contiguous()
     return lk_homography_batch(c0, c1, rollwindow_warp_fields, n_iters=n_iters,
                                p0=homography_params(hn0))
 
 
-def apply_camera(i1: torch.Tensor, hn: torch.Tensor) -> torch.Tensor:
-    """Warp i1 by the camera homography (roll + window warp, d=4)."""
+def apply_camera(i1: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
+    """Warp i1 by the camera (roll + window warp, d=4): cam [N, 3, 3] is a
+    normalized-coords homography, [N, 2, 3] a displacement affine."""
+    if cam.shape[-2] == 2:
+        return _affine_warp_rollwindow(i1, cam, 4)
     h, w = i1.shape[1:]
-    du, dv = homography_displacement(hn, h, w)
+    du, dv = homography_displacement(cam, h, w)
     return rollwindow_warp_fields(i1, du, dv, 4)
 
 
@@ -140,21 +160,23 @@ def tvl1_warped_flow(i0, i1, p: TVL1Params = TVL1Params(), max_disp: int = 6):
 
 
 def tvl1_warped_flow_cam(i0, i1, p: TVL1Params = TVL1Params(), max_disp: int = 6):
-    """tvl1_warped_flow that also returns the per-pair homography."""
-    hn = estimate_camera(i0, i1, p)
-    u, v = tvl1_flow(i0, apply_camera(i1, hn), p, max_disp)
-    return u, v, hn
+    """tvl1_warped_flow that also returns the per-pair camera (A [N, 2, 3]
+    or Hn [N, 3, 3])."""
+    cam = estimate_camera(i0, i1, p)
+    u, v = tvl1_flow(i0, apply_camera(i1, cam), p, max_disp)
+    return u, v, cam
 
 
 def tvl1_warped_flow_warm(i0, i1, u0, v0, p: TVL1Params = TVL1Params(),
                           max_disp: int = 6, levels: int = 1,
-                          hn: torch.Tensor | None = None,
+                          cam: torch.Tensor | None = None,
                           cam_refine_iters: int = 0):
-    """Warm-started warped flow. Without hn each pair estimates its own
-    camera; with hn (the key pair's) it is reused, or refined on this pair
-    with cam_refine_iters LK iterations."""
-    if hn is None:
-        hn = estimate_camera(i0, i1, p)
-    elif cam_refine_iters > 0:
-        hn = refine_camera(i0, i1, p, hn, n_iters=cam_refine_iters)
-    return tvl1_flow_warm(i0, apply_camera(i1, hn), u0, v0, p, max_disp, levels)
+    """Warm-started warped flow. Without cam each pair estimates its own
+    camera; with cam (the key pair's) it is reused, and a homography is
+    refined on this pair with cam_refine_iters LK iterations (an affine is
+    reused as it is, as in the JAX package)."""
+    if cam is None:
+        cam = estimate_camera(i0, i1, p)
+    elif cam_refine_iters > 0 and cam.shape[-2] == 3:
+        cam = refine_camera(i0, i1, p, cam, n_iters=cam_refine_iters)
+    return tvl1_flow_warm(i0, apply_camera(i1, cam), u0, v0, p, max_disp, levels)

@@ -1,7 +1,7 @@
 """Two-stream feature extraction on one GPU: video -> per-clip signatures.
 
-Port of ``videoquery/pipeline/extract.py``'s pair path (the JAX package's
-``flow_impl="pallas"``). Per batch of clips, on the device:
+Port of ``videoquery/pipeline/extract.py``. Per batch of clips, on the
+device (the pair path, ``flow_impl="pallas"``, the default everywhere):
 
   frames u8 [B, F, H, W, 3] -> gray at the flow grid [B, F, fh, fw]
       (or, with the compact uploads, the host's u8 gray [B, F, fh, fw] and
@@ -15,7 +15,10 @@ Port of ``videoquery/pipeline/extract.py``'s pair path (the JAX package's
          bfloat16 activations, f32 accumulation: ``dtype``)
       -> {stream: [K, B, 1024]} f32 signatures (ticks averaged)
 
-and reference-format CSVs from them (calcSig_wOF.py:116-134). The host half
+and reference-format CSVs from them (calcSig_wOF.py:116-134). With
+``flow_impl="xla"`` the flow of every pair of the clip comes from the
+gather-warp solver (``kernels/tvl1.py``, plain PyTorch), the flow-quality
+gate's baseline; only a caller that names it gets it. The host half
 (decode, payload build) is ``pipeline/payload.py``; a video streams through
 ``Extractor.extract_video_stream`` (a decode thread) or, for many videos,
 ``extract_videos`` (decode worker processes, ``pipeline/mpstream.py``). The
@@ -23,8 +26,7 @@ device is explicit: CUDA unless the caller (or ``VIDEOQUERY_DEVICE``) names
 the CPU, where the kernels' plain versions run. TF32 is turned off in the
 entry points: the camera's cross-correlation argmax moves under it.
 
-Not ported yet: warm-start advection, the all-frames clip-flow path and mesh
-sharding.
+Not ported yet: mesh sharding.
 
     python -m videoquery_torch.pipeline.extract synthetic --out feats/ [--dtype bfloat16]
     python -m videoquery_torch.pipeline.extract videos/ --out feats/ --workers 4 \
@@ -48,10 +50,13 @@ from videoquery_torch.index.csvio import write_features_csv
 from videoquery_torch.index.records import FeatureRecord
 from videoquery_torch.kernels.resize import linear_matrix, resize2
 from videoquery_torch.kernels.tvl1 import TVL1Params
+from videoquery_torch.kernels.tvl1 import tvl1_flow as xla_flow
+from videoquery_torch.kernels.tvl1 import tvl1_warped_flow as xla_warped_flow
 from videoquery_torch.kernels.tvl1_flow import (tvl1_flow, tvl1_flow_warm,
                                                 tvl1_warped_flow,
                                                 tvl1_warped_flow_cam,
                                                 tvl1_warped_flow_warm)
+from videoquery_torch.kernels.window_warp import window_warp
 from videoquery_torch.nn.tsn import TwoStreamTSN
 from videoquery_torch.pipeline import decode
 from videoquery_torch.pipeline.payload import (BatchPayload, build_payload,
@@ -60,8 +65,9 @@ from videoquery_torch.pipeline.payload import (BatchPayload, build_payload,
 from videoquery_torch.pipeline.preprocess import (preprocess_flow,
                                                   preprocess_rgb,
                                                   quantize_flow)
-from videoquery_torch.pipeline.sampling import (flow_pair_plan, flow_warm_plan,
-                                                frame_ticks)
+from videoquery_torch.pipeline.sampling import (flow_pair_plan,
+                                                flow_stack_index_matrix,
+                                                flow_warm_plan, frame_ticks)
 
 log = logging.getLogger(__name__)
 
@@ -74,6 +80,16 @@ PRODUCTION_TVL1 = TVL1Params(n_scales=4, n_warps=3, fine_warps=2,
                              grad_source="warped",
                              camera_model="homography",
                              rescue_frac=0.125)
+
+
+# "pallas": the pairs the stacks use, on K2 and K3; "xla": every pair of the
+# clip on the gather-warp solver
+FLOW_IMPLS = ("pallas", "xla")
+
+
+def check_flow_impl(flow_impl: str) -> None:
+    if flow_impl not in FLOW_IMPLS:
+        raise ValueError(f"flow_impl must be one of {FLOW_IMPLS}; got {flow_impl!r}")
 
 
 def disable_tf32() -> None:
@@ -89,6 +105,29 @@ def warm_tvl1_params(tvl1: TVL1Params) -> TVL1Params:
         tvl1, n_warps=tvl1.warm_warps, fine_warps=tvl1.warm_warps,
         fine_iters=None,
         n_iters=tvl1.warm_iters or tvl1.fine_iters or tvl1.n_iters)
+
+
+def _clip_flow(gray: torch.Tensor, bound: float, warped: bool, tvl1: TVL1Params,
+               impl: str = "xla", value_scale: tuple[float, float] = (1.0, 1.0)
+               ) -> torch.Tensor:
+    """Quantized flow of every frame of whole clips, dense_flow's layout.
+
+    gray f32 [B, F, H, W] in [0, 1] -> u8 [B, F, H, W, 2] (x, y): frame i
+    holds flow i -> i+1 and the last frame repeats the one before
+    (build_wof_clips.py:84-100). impl "xla" solves on the gather-warp
+    solver, "pallas" on K2 and K3 (no rescue, as in the JAX package)."""
+    b, f, h, w = gray.shape
+    i0 = gray[:, :-1].reshape(b * (f - 1), h, w).contiguous()
+    i1 = gray[:, 1:].reshape(b * (f - 1), h, w).contiguous()
+    if impl == "pallas":
+        flow_fn = tvl1_warped_flow if warped else tvl1_flow
+    else:
+        flow_fn = xla_warped_flow if warped else xla_flow
+    u, v = flow_fn(i0, i1, tvl1)
+    # flow on a reduced grid is in its own pixels: to native pixels per axis
+    uv = torch.stack([u * value_scale[0], v * value_scale[1]], dim=-1)
+    uv = uv.reshape(b, f - 1, h, w, 2)
+    return quantize_flow(torch.cat([uv, uv[:, -1:]], dim=1), bound)
 
 
 def _rescue_fast_motion(i0, i1, u, v, warped: bool, tvl1: TVL1Params,
@@ -123,13 +162,20 @@ def _rescue_fast_motion(i0, i1, u, v, warped: bool, tvl1: TVL1Params,
 
 
 def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
-                  tvl1: TVL1Params, warm_plan=None, warm_camera: str = "own"):
+                  tvl1: TVL1Params, warm_plan=None, warm_camera: str = "own",
+                  warm_advect: int = 0):
     """Raw (u, v) flow of the selected frame pairs, f32 [B, P, h, w] in
     flow-grid pixels. warm_plan (key_pos, warm_pos, warm_src) turns on the
     temporal warm start (sampling.flow_warm_plan): key pairs solve the full
     pyramid, the others refine their key's flow at the finest level; with
-    warm_camera "key" or "init" they take (and with "init" refine) the key
-    pair's camera."""
+    warm_camera "key" or "init" they take (and with "init" refine, a
+    homography only) the key pair's camera.
+
+    warm_advect > 0 advects a warm pair's start: a pair j frames from its
+    key samples the key's flow where the content came from, u0(x) =
+    u_key(x - j * u_key(x)), one K3 call with window d = warm_advect, which
+    must cover max |j| * the flow (group // 2 * 8 at the production
+    schedule)."""
     b, f, h, w = gray.shape
     i0 = gray[:, pair_idx]
     i1 = gray[:, pair_idx + 1]
@@ -148,21 +194,31 @@ def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
     m = warm_pos.shape[0]
     i0k = i0[:, key_pos].reshape(b * k, h, w)
     i1k = i1[:, key_pos].reshape(b * k, h, w)
-    hn_warm = None
+    cam_warm = None
     if warped and warm_camera in ("key", "init"):
-        uk, vk, hk = tvl1_warped_flow_cam(i0k, i1k, tvl1)
-        hn_warm = hk.reshape(b, k, 3, 3)[:, warm_src].reshape(b * m, 3, 3)
+        uk, vk, ck = tvl1_warped_flow_cam(i0k, i1k, tvl1)
+        cam_shape = tuple(ck.shape[1:])     # (2, 3) affine or (3, 3) homography
+        cam_warm = ck.reshape((b, k) + cam_shape)[:, warm_src].reshape((b * m,) + cam_shape)
     else:
         uk, vk = flow_fn(i0k, i1k, tvl1)
     uk = uk.reshape(b, k, h, w)
     vk = vk.reshape(b, k, h, w)
     u0 = uk[:, warm_src].reshape(b * m, h, w)
     v0 = vk[:, warm_src].reshape(b * m, h, w)
+    if warm_advect:
+        # signed frame distance warm pair -> key, [b * m] b-major like u0
+        j = (pair_idx[warm_pos] - pair_idx[key_pos][warm_src]).float()
+        jb = j.repeat(b)[:, None, None]
+        du = -jb * u0
+        dv = -jb * v0
+        uv0 = window_warp(torch.cat([u0, v0]), torch.cat([du, du]), torch.cat([dv, dv]),
+                          warm_advect)
+        u0, v0 = uv0[:b * m], uv0[b * m:]
     i0w = i0[:, warm_pos].reshape(b * m, h, w)
     i1w = i1[:, warm_pos].reshape(b * m, h, w)
     if warped:
         uw, vw = tvl1_warped_flow_warm(
-            i0w, i1w, u0, v0, warm_tvl1_params(tvl1), hn=hn_warm,
+            i0w, i1w, u0, v0, warm_tvl1_params(tvl1), cam=cam_warm,
             cam_refine_iters=3 if warm_camera == "init" else 0)
     else:
         uw, vw = tvl1_flow_warm(i0w, i1w, u0, v0, warm_tvl1_params(tvl1))
@@ -184,10 +240,11 @@ def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
 
 def _pair_flow(gray, pair_idx, bound: float, warped: bool, tvl1: TVL1Params,
                value_scale: tuple[float, float], warm_plan=None,
-               warm_camera: str = "own") -> torch.Tensor:
+               warm_camera: str = "own", warm_advect: int = 0) -> torch.Tensor:
     """Quantized flow of the selected pairs: u8 [B, P, h, w, 2]. value_scale
     (sx, sy) converts flow-grid pixels to native pixels."""
-    u, v = _pair_flow_uv(gray, pair_idx, warped, tvl1, warm_plan, warm_camera)
+    u, v = _pair_flow_uv(gray, pair_idx, warped, tvl1, warm_plan, warm_camera,
+                         warm_advect)
     uv = torch.stack([u * value_scale[0], v * value_scale[1]], dim=-1)
     return quantize_flow(uv, bound)
 
@@ -259,9 +316,34 @@ class StepPlan:
     """Device index arrays of one clip length (cached per length)."""
 
     tick_idx: torch.Tensor       # [T] 0-based rgb tick frames
-    stack_pos: torch.Tensor      # [T, D] positions into pair_idx
-    pair_idx: torch.Tensor       # [P] flow pairs the stacks use
+    stack_pos: torch.Tensor      # [T, D] positions into pair_idx ("pallas") or
+                                 # flow frames (flow_stack_index_matrix, "xla")
+    pair_idx: torch.Tensor | None  # [P] flow pairs the stacks use ("pallas")
     warm: tuple | None           # (key_pos, warm_pos, warm_src) or None
+
+
+def step_plan(f_len: int, cfg: ExtractionConfig, flow_impl: str, device) -> StepPlan:
+    """The index arrays of a clip of f_len frames, on the device: the rgb
+    ticks, and for "pallas" the pairs the flow stacks use, their positions
+    and the warm plan (cfg.flow_warm_group > 1); for "xla" the stacks'
+    flow frames (flow_stack_index_matrix: pair_idx[stack_pos] clamped,
+    the same flow)."""
+    check_flow_impl(flow_impl)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    ticks = dev(frame_ticks(f_len, cfg.num_ticks, 1) - 1)
+    if flow_impl == "xla":
+        return StepPlan(ticks, dev(flow_stack_index_matrix(
+            f_len, cfg.num_ticks, cfg.flow_stack_depth)), None, None)
+    pair_idx, stack_pos = flow_pair_plan(f_len, cfg.num_ticks, cfg.flow_stack_depth)
+    warm = None
+    if cfg.flow_warm_group > 1:
+        key_pos, warm_pos, warm_src = flow_warm_plan(pair_idx, cfg.flow_warm_group)
+        if warm_pos.size:
+            warm = (dev(key_pos), dev(warm_pos), dev(warm_src))
+    return StepPlan(ticks, dev(stack_pos), dev(pair_idx), warm)
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -271,10 +353,14 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
                  cfg: ExtractionConfig, warped: bool, tvl1: TVL1Params,
                  dtype: str = "float32", gray_u8: torch.Tensor | None = None,
-                 native_hw: tuple[int, int] | None = None):
+                 native_hw: tuple[int, int] | None = None, flow_impl: str = "pallas",
+                 warm_advect: int = 0):
     """One batch: frames u8 [B, F, H, W, 3] BGR -> (rgb, flow) f32
     embeddings, each [K, B, 1024]. ``dtype`` ("float32" or "bfloat16") is
-    the networks' working type; the flow is f32 either way.
+    the networks' working type; the flow is f32 either way. flow_impl
+    "pallas" solves the plan's pairs on K2 and K3 (with its warm plan, and
+    warm_advect: _pair_flow_uv), "xla" every pair of the clip on the
+    gather-warp solver (the plan's stacks then index flow frames).
 
     The compact upload (cfg.host_gray, build_payload's layouts): gray_u8 u8
     [B, F, fh, fw] is the host's gray at the flow grid, and frames_u8 holds
@@ -283,6 +369,7 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
     (H, W) the gray was computed from, is required), with cfg.host_yuv420
     packed as I420 [B, T, crop * 3 // 2, crop]. native_hw sets the flow-grid
     to native-pixel value scale."""
+    check_flow_impl(flow_impl)
     host_cropped = gray_u8 is not None and cfg.host_crop
     if gray_u8 is not None:
         if native_hw is not None:
@@ -299,8 +386,12 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
     else:
         gray, vscale = _flow_gray_grid(frames_u8, cfg.flow_res_div,
                                        cfg.flow_gray_matmul)
-    flow_q = _pair_flow(gray, plan.pair_idx, cfg.flow_bound, warped, tvl1,
-                        vscale, plan.warm, cfg.flow_warm_camera)  # [B,P,h,w,2]
+    if flow_impl == "pallas":
+        flow_q = _pair_flow(gray, plan.pair_idx, cfg.flow_bound, warped, tvl1, vscale,
+                            plan.warm, cfg.flow_warm_camera, warm_advect)  # [B,P,h,w,2]
+    else:
+        flow_q = _clip_flow(gray, cfg.flow_bound, warped, tvl1, flow_impl,
+                            vscale)                                      # [B,F,h,w,2]
     if gray_u8 is not None:
         rgb_ticks = frames_u8          # the host gathered the tick frames
         if host_cropped and cfg.host_yuv420:
@@ -356,25 +447,34 @@ def gather_signatures(sigs: list[ClipSignatures]) -> list[ClipSignatures]:
 
 
 class Extractor:
-    """Two-stream signature extractor on one device."""
+    """Two-stream signature extractor on one device. flow_impl "pallas" (the
+    default on every device) solves flow on K2 and K3; "xla" on the
+    gather-warp solver (extract_step)."""
 
     def __init__(self, tsn: TwoStreamTSN, cfg: ExtractionConfig | None = None,
                  warped: bool = True, tvl1: TVL1Params | None = None, device=None,
-                 dtype: str = "float32"):
+                 dtype: str = "float32", flow_impl: str = "pallas"):
         self.cfg = cfg or ExtractionConfig()
         self.tvl1 = tvl1 or PRODUCTION_TVL1
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}; got {dtype!r}")
+        check_flow_impl(flow_impl)
+        if (warped and self.cfg.flow_warm_camera == "init"
+                and self.tvl1.camera_model != "homography"):
+            # the warm pairs' refinement exists for homographies only: an
+            # affine key camera is reused as it is ("key"), as in the JAX
+            # package, which warns the same
+            log.warning("flow_warm_camera='init' requires camera_model='homography' "
+                        "(got %r); warm groups will reuse the stale key camera "
+                        "('key' behavior)", self.tvl1.camera_model)
         self.dtype = dtype
+        self.flow_impl = flow_impl
         self.flow_res_div = self.cfg.flow_res_div
         if self.cfg.feature_blob != "global_pool":
             # the net only computes global_pool; another name would label
             # global_pool vectors wrongly in the CSVs
             raise ValueError(f"feature_blob must be 'global_pool'; got "
                              f"{self.cfg.feature_blob!r}")
-        if warped and self.tvl1.camera_model != "homography":
-            raise NotImplementedError("the port implements the homography "
-                                      "camera only")
         self.device = resolve_device(device)
         disable_tf32()
         for net in tsn.rgb.nets + tsn.flow.nets:
@@ -387,22 +487,8 @@ class Extractor:
         """Index arrays for a clip length, on the device, cached."""
         plan = self._plans.get(f_len)
         if plan is None:
-            cfg = self.cfg
-            pair_idx, stack_pos = flow_pair_plan(f_len, cfg.num_ticks,
-                                                 cfg.flow_stack_depth)
-
-            def dev(a):
-                return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
-
-            warm = None
-            if cfg.flow_warm_group > 1:
-                key_pos, warm_pos, warm_src = flow_warm_plan(pair_idx,
-                                                             cfg.flow_warm_group)
-                if warm_pos.size:
-                    warm = (dev(key_pos), dev(warm_pos), dev(warm_src))
-            plan = StepPlan(dev(frame_ticks(f_len, cfg.num_ticks, 1) - 1),
-                            dev(stack_pos), dev(pair_idx), warm)
-            self._plans[f_len] = plan
+            plan = self._plans[f_len] = step_plan(f_len, self.cfg, self.flow_impl,
+                                                  self.device)
         return plan
 
     def extract_frames(self, frames: np.ndarray, clip_numbers=None
@@ -423,7 +509,8 @@ class Extractor:
                     else torch.from_numpy(payload.gray).to(self.device))
         rgb, flow = extract_step(self.tsn, frames_dev, self._plan(payload.f_len),
                                  self.cfg, self.warped, self.tvl1, self.dtype,
-                                 gray_u8=gray_dev, native_hw=payload.native_hw)
+                                 gray_u8=gray_dev, native_hw=payload.native_hw,
+                                 flow_impl=self.flow_impl)
         return ClipSignatures(payload.nums, rgb, flow, self.tsn.rgb.splits)
 
     def extract_video_stream(self, path: str,
