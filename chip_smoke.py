@@ -120,6 +120,29 @@ Phases, each printing its own lines; any failure exits non-zero:
             each caller, shape and window in those runs (K2's tiles route
             at 128x176 and K3's affine residual among them); a JSON line
             {"flow_quality": ...} before the card's line.
+12. scale-out  a NCCL world of one rank on the card (a file:// store in the
+            run's temporary directory) and make_mesh("cuda"); phase 5b's index
+            again (1,000,000 segments bf16, 12.3 GB, the same seed) through
+            ShardedSearch (impl "pallas": K1's scores epilogue and torch.topk
+            on the rank's shard, the all-gather of the [Q, k] candidates, the
+            merge) at Q=16, k=20: ids equal to fused_query_topk's, values
+            bitwise; the same index as 4 row shards in this process, each
+            shard's K1 top-20 (shard 0's against the plain version) merged
+            and held to the unsharded top-20 (ids equal, values within rtol
+            1e-5 / atol 1e-6; whether bitwise is printed); the p50 of 10
+            sharded calls beside K1 + top-k + the download, in turns; K1's
+            launches on the sharded path.
+13. train   TSNTrainer under DDP on that world: the rgb stream (full
+            BN-Inception at 224x224, 101 classes, 3 segments, dropout 0.8,
+            learning rate 0.01), 10 steps on one seeded batch of 32 videos
+            (96 images), the loss must fall; the flow stream (10 channels)
+            for 3 steps; at 2 videos and dropout 0 the card's first step
+            against the CPU's (loss rtol 1e-5, every weight rtol 2e-4 / atol
+            2e-6, tests/test_distributed.py's tolerances); a checkpoint saved
+            after that step, loaded into a fresh trainer, whose next step
+            equals continuing bit for bit. The step p50, images/s and the
+            peak of torch.cuda.max_memory_allocated; a JSON line
+            {"scale_out": ..., "train": ...} before the card's line.
 
 Beside each kernel's time the kernels line gives its bound on an H100 SXM
 (the larger of its compulsory bytes over 3.35 TB/s and its operations over
@@ -509,15 +532,12 @@ def phase_rounds(dev, n_segments=100_000, q=8, n_reviewed=20, repeats=5) -> dict
             "err": errs[0]}
 
 
-def phase_query(dev, n_segments=1_000_000, q=16, k=20, repeats=10) -> dict:
-    """16 queries over 1M bf16 segments through fused_query_topk; then the
-    engine's avg+counts pass (f32 targets) at Q=8 over the same index."""
+def query_world(dev, n_segments: int, q: int, d: int = 1024):
+    """Phase 5b's query world, from seed 2: a bf16 index [2, 3, N, D] of
+    unit-scale embeddings (every member present), Q f32 targets, weights
+    1.0 / 1.5. Returns (feats, mask, targets, tmask, weights)."""
     import torch
 
-    from videoquery_torch.kernels import query as k1
-    from videoquery_torch.search.scoring import ensemble_similarities_batched
-
-    d = 1024
     g = torch.Generator(device=dev).manual_seed(2)
     feats = torch.randn((2, 3, n_segments, d), generator=g, device=dev,
                         dtype=torch.bfloat16).mul_(1.0 / 32.0)  # exact in bf16
@@ -526,6 +546,19 @@ def phase_query(dev, n_segments=1_000_000, q=16, k=20, repeats=10) -> dict:
     tmask = torch.ones((q, 2, 3), dtype=torch.bool, device=dev)
     weights = torch.ones((q, 2), device=dev)
     weights[:, 1] = 1.5
+    return feats, mask, targets, tmask, weights
+
+
+def phase_query(dev, n_segments=1_000_000, q=16, k=20, repeats=10) -> dict:
+    """16 queries over 1M bf16 segments through fused_query_topk; then the
+    engine's avg+counts pass (f32 targets) at Q=8 over the same index."""
+    import torch
+
+    from videoquery_torch.kernels import query as k1
+    from videoquery_torch.search.scoring import ensemble_similarities_batched
+
+    feats, mask, targets, tmask, weights = query_world(dev, n_segments, q)
+    d = feats.shape[3]
     gb = feats.numel() * feats.element_size() / 1e9
     vals, ids = k1.fused_query_topk(feats, mask, targets, tmask, weights, k=k)
     vals_r, ids_r = torch.topk(k1.fused_query_scores_reference(
@@ -1562,6 +1595,215 @@ def phase_flow_quality() -> dict:
     return runs
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+def phase_sharded(dev, mesh, query: dict, n_segments=1_000_000, q=16, k=20,
+                  n_shards=4, repeats=10) -> dict:
+    """ShardedSearch on the NCCL world of one rank over phase 5b's index
+    (same seed): its top-k against fused_query_topk (ids equal, values
+    bitwise); the index split into n_shards row shards in this process,
+    each shard's K1 top-k merged, against the unsharded top-k; the p50 of
+    the sharded call beside K1's; K1's launches on the sharded path."""
+    import numpy as np
+    import torch
+
+    from videoquery_torch.index.store import FeatureIndex
+    from videoquery_torch.kernels import query as k1
+    from videoquery_torch.search.distributed import ShardedSearch, merge_topk
+
+    feats, mask, targets, tmask, weights = query_world(dev, n_segments, q)
+    index = FeatureIndex(np.arange(n_segments, dtype=np.int64), feats, mask, STREAMS,
+                         (1, 2, 3), "global_pool")
+    search = ShardedSearch(index, mesh)
+    # a world of one rank: its shard is the index itself, no copy
+    assert search.index.feats.data_ptr() == feats.data_ptr()
+    k1.LAUNCHES = 0
+    vals, ids = search.topk(targets, tmask, weights, k)     # the main path
+    launches = k1.LAUNCHES
+    assert launches >= 1, "the sharded search launched no K1"
+    want_vals, want_pos = k1.fused_query_topk(feats, mask, targets, tmask, weights, k=k)
+    want_vals, want_pos = want_vals.cpu().numpy(), want_pos.cpu().numpy()
+    assert vals.shape == (q, k) and np.isfinite(vals).all()
+    assert np.array_equal(ids, want_pos), "sharded top-k ids differ from fused_query_topk's"
+    assert np.array_equal(vals.view(np.uint32), want_vals.view(np.uint32)), (
+        "sharded top-k values differ from fused_query_topk's")
+    log(f"[sharded] ShardedSearch (NCCL, world of 1, impl=pallas), {q} queries x "
+        f"{n_segments} bf16 segments, top-{k}: ids equal and values bitwise equal to "
+        f"fused_query_topk's; K1 launches {launches}")
+
+    # n_shards row shards in this process: each shard's K1 top-k (the first
+    # also against the plain version), then the merge
+    errs: list[float] = []
+    shard_vals, shard_pos = [], []
+    for r in range(n_shards):
+        sh = index.shard(r, n_shards, dev)
+        v, i = k1.fused_query_topk(sh.feats, sh.mask, targets, tmask, weights, k=k)
+        if r == 0:
+            v_r, i_r = torch.topk(k1.fused_query_scores_reference(
+                sh.feats, sh.mask, targets, tmask, weights), k)
+            check_close(f"shard 0 of {n_shards} top-k values", v, v_r, errs)
+            assert torch.equal(i, i_r), "shard 0's top-k ids differ from the plain version's"
+        shard_vals.append(v)
+        shard_pos.append(i + r * sh.n_padded)
+        del sh
+    mv, mp = merge_topk(torch.stack(shard_vals), torch.stack(shard_pos), k)
+    mv, mp = mv.cpu().numpy(), mp.cpu().numpy()
+    assert np.array_equal(mp, want_pos), f"the {n_shards}-shard merge's ids differ"
+    merge_err = float(np.abs(mv - want_vals).max())
+    errs.append(merge_err)
+    assert np.allclose(mv, want_vals, rtol=RTOL, atol=ATOL), (
+        f"the {n_shards}-shard merge's values differ by {merge_err:.3e}")
+    merge_bitwise = bool(np.array_equal(mv.view(np.uint32), want_vals.view(np.uint32)))
+    log(f"[sharded] {n_shards} row shards of {n_segments // n_shards}, each K1 + top-{k}, "
+        f"merged: ids equal to the unsharded top-{k}, values "
+        f"{'bitwise equal' if merge_bitwise else f'within {merge_err:.3e}'}")
+
+    # p50 of the sharded call (K1, top-k, the all-gather, the merge, the
+    # [Q, k] download) beside K1 + top-k alone, in turns
+    def direct():
+        v, i = k1.fused_query_topk(feats, mask, targets, tmask, weights, k=k)
+        return v.cpu(), i.cpu()
+
+    sharded_ms = p50_ms(lambda: search.topk(targets, tmask, weights, k), repeats)
+    direct_ms = p50_ms(direct, repeats)
+    sharded2_ms = p50_ms(lambda: search.topk(targets, tmask, weights, k), repeats)
+    direct2_ms = p50_ms(direct, repeats)
+    log(f"[sharded] p50 of {repeats}: ShardedSearch.topk {sharded_ms:.3f} / "
+        f"{sharded2_ms:.3f} ms, fused_query_topk + download {direct_ms:.3f} / "
+        f"{direct2_ms:.3f} ms (phase 5b's K1 + top-k p50 {query['query_ms']:.3f} ms)")
+    del feats, mask, index, search
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": sharded_ms, "again_ms": sharded2_ms,
+            "direct_ms": direct_ms, "direct_again_ms": direct2_ms,
+            "merge_shards": n_shards, "merge_bitwise": merge_bitwise, "err": max(errs)}
+
+
+# -- phase 13 -----------------------------------------------------------------
+
+TRAIN_RTOL_LOSS = 1e-5                   # tests/test_distributed.py:87-116
+TRAIN_RTOL_W, TRAIN_ATOL_W = 2e-4, 2e-6
+
+
+def phase_train(dev, mesh, tmp: str, videos=32, steps=10, flow_steps=3) -> dict:
+    """TSNTrainer under DDP on the NCCL world of one rank: the rgb stream at
+    224x224, 101 classes, 3 segments, dropout 0.8, `steps` steps on one
+    seeded batch of `videos` videos (the loss must fall); the flow stream
+    (10 channels) for `flow_steps`; at 2 videos and dropout 0 the card's
+    first step against the CPU's; a checkpoint saved, loaded into a fresh
+    trainer and stepped, against continuing."""
+    import numpy as np
+    import torch
+
+    from videoquery_torch.nn import bn_inception
+    from videoquery_torch.train.checkpoint import load_train_state, save_train_state
+    from videoquery_torch.train.trainer import TrainConfig, TSNTrainer
+
+    rng = np.random.default_rng(13)
+    frames = rng.standard_normal((videos, 3, 224, 224, 3), dtype=np.float32)
+    labels = rng.integers(0, bn_inception.NUM_CLASSES, size=(videos,))
+    cfg = TrainConfig(num_segments=3, dropout_rate=0.8, learning_rate=0.01)
+    out = {"videos": videos, "images_per_step": videos * 3}
+
+    def run(trainer, batch, n, seed0):
+        losses, times = [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.step(*batch, seed=seed0 + i)       # returns host floats
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"])
+        assert np.isfinite(losses).all(), losses
+        return losses, times
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    rgb = TSNTrainer(bn_inception.init_params(0), cfg, mesh=mesh, device=dev)
+    losses, times = run(rgb, (frames, labels), steps, 0)
+    assert losses[-1] < losses[0], f"the loss did not fall over {steps} steps: {losses}"
+    p50 = statistics.median(times[1:])
+    out["rgb"] = {"losses": losses, "step_ms": times, "step_p50_ms": p50,
+                  "images_per_s": videos * 3 / (p50 / 1e3),
+                  "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    log(f"[train] rgb, {videos} videos x 3 segments at 224x224, dropout 0.8, DDP (NCCL, "
+        f"world of 1): loss {losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps; step "
+        f"p50 {p50:.1f} ms (first {times[0]:.1f}), {out['rgb']['images_per_s']:.0f} images/s, "
+        f"peak {out['rgb']['peak_gb']:.2f} GB allocated")
+    # where a step's time goes: its operations (aten's flop counter: the
+    # convs and the head, forward and backward) against the f32 peak, and
+    # one traced step (device busy time, idle share, top kernels)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        rgb.step(frames, labels, seed=steps)
+    flops = fc.get_total_flops()
+    tr = trace(lambda: rgb.step(frames, labels, seed=steps + 1), top=10, warm=False)
+    out["rgb"].update(step_tflop=flops / 1e12, tflops_per_s=flops / (p50 / 1e3) / 1e12,
+                      f32_bound_ms=flops / PEAK_F32 * 1e3,
+                      trace={"wall_ms": tr["wall_ms"], "busy_ms": tr["busy_ms"],
+                             "idle_share": tr["idle_share"],
+                             "by_kind_ms": {k: ms for k, (ms, _n) in by_kind(tr).items()}})
+    log(f"[train] a step: {flops / 1e12:.3f} TFLOP (convs and head, forward and backward), "
+        f"{flops / (p50 / 1e3) / 1e12:.1f} TFLOP/s at the p50; f32 bound "
+        f"{flops / PEAK_F32 * 1e3:.1f} ms at {PEAK_F32 / 1e12:.0f} TFLOP/s")
+    log_trace("train", "one rgb step", tr)
+    del rgb
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    flow_frames = rng.standard_normal((videos, 3, 224, 224, bn_inception.FLOW_CHANNELS),
+                                      dtype=np.float32)
+    flow = TSNTrainer(bn_inception.init_params(1, in_channels=bn_inception.FLOW_CHANNELS),
+                      cfg, mesh=mesh, device=dev)
+    losses, times = run(flow, (flow_frames, labels), flow_steps, 100)
+    out["flow"] = {"losses": losses, "step_ms": times,
+                   "step_p50_ms": statistics.median(times[1:]),
+                   "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    log(f"[train] flow (10 channels), {flow_steps} steps: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; step p50 {out['flow']['step_p50_ms']:.1f} "
+        f"ms, peak {out['flow']['peak_gb']:.2f} GB")
+    del flow, flow_frames
+    torch.cuda.empty_cache()
+
+    # the card's first step against the CPU's: 2 videos, dropout 0
+    cfg0 = TrainConfig(num_segments=3, dropout_rate=0.0, learning_rate=0.01)
+    small = (frames[:2], labels[:2])
+    params = bn_inception.init_params(2)
+    card = TSNTrainer(params, cfg0, mesh=mesh, device=dev)
+    host = TSNTrainer(params, cfg0, device="cpu")
+    mc, mh = card.step(*small, seed=0), host.step(*small, seed=0)
+    loss_rel = abs(mc["loss"] - mh["loss"]) / abs(mh["loss"])
+    assert loss_rel <= TRAIN_RTOL_LOSS, (mc, mh)
+    pc, ph = card.params(), host.params()
+    worst = 0.0                  # the largest |diff| / (atol + rtol |cpu|) of any weight
+    for name in ph:
+        for leaf in ("w", "b"):
+            a, b = pc[name][leaf], ph[name][leaf]
+            worst = max(worst, float((np.abs(a - b) / (TRAIN_ATOL_W + TRAIN_RTOL_W * np.abs(b))).max()))
+    assert worst <= 1.0, f"weights after one step: card vs CPU at {worst:.2f} of the tolerance"
+    out["card_vs_cpu"] = {"loss_card": mc["loss"], "loss_cpu": mh["loss"], "loss_rel": loss_rel,
+                          "weights_share_of_tolerance": worst}
+    log(f"[train] 2 videos, dropout 0: the card's first step against the CPU's: loss "
+        f"{mc['loss']:.6f} / {mh['loss']:.6f} (rel {loss_rel:.2e}, rtol {TRAIN_RTOL_LOSS}); "
+        f"every weight within {worst:.3f} of rtol {TRAIN_RTOL_W} / atol {TRAIN_ATOL_W}")
+    del host
+
+    # a checkpoint on the card: save after step 1, load into a fresh trainer,
+    # take step 2 on both
+    path = save_train_state(os.path.join(tmp, "train_ckpt"), card.params(), card.opt_state(),
+                            card.steps)
+    state = load_train_state(path)
+    resumed = TSNTrainer(state["params"], cfg0, mesh=mesh, device=dev,
+                         opt_state=state["opt_state"], step=state["step"])
+    ma, mb = card.step(*small, seed=1), resumed.step(*small, seed=1)
+    assert ma == mb, (ma, mb)
+    pa, pb = card.params(), resumed.params()
+    assert all(np.array_equal(pa[n][leaf], pb[n][leaf]) for n in pa for leaf in ("w", "b")), (
+        "resuming from the checkpoint differs from continuing")
+    out["checkpoint"] = {"bytes": os.path.getsize(path), "resume_equals_continuing": True}
+    log(f"[train] checkpoint ({os.path.getsize(path) / 1e6:.1f} MB npz) saved after step 1, "
+        f"loaded into a fresh trainer: its step 2 equals continuing, bit for bit")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1583,6 +1825,9 @@ def main() -> int:
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    import torch.distributed as dist
+
+    from videoquery_torch.core.meshes import initialize_multihost, make_mesh
     from videoquery_torch.kernels import _build, inception_block as t1, query as k1
     from videoquery_torch.kernels import roll as t2, tvl1_level as k2, window_warp as k3
 
@@ -1610,15 +1855,25 @@ def main() -> int:
     block = phase_t1(dev)
     rollp = phase_t2(dev)
     quality = phase_flow_quality()
+    with tempfile.TemporaryDirectory() as tmp:
+        # a NCCL world of one rank on this card for phases 12-13
+        initialize_multihost(f"file://{os.path.join(tmp, 'store')}", 1, 0, dev)
+        try:
+            mesh = make_mesh("cuda")
+            sharded = phase_sharded(dev, mesh, query)
+            train = phase_train(dev, mesh, tmp)
+        finally:
+            dist.destroy_process_group()
 
     print(json.dumps({"ingest": ingest}))
     print(json.dumps({"flow_quality": quality}))
+    print(json.dumps({"scale_out": sharded, "train": train}))
     log(card_line())  # the card and its power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "K1 fused query scoring (avg+counts and scores epilogues)",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches,
-        "max_abs_err": max(max_err, rounds["err"], query["err"]),
+        "max_abs_err": max(max_err, rounds["err"], query["err"], sharded["err"]),
         "ms": query["query_ms"], "plain_ms": query["query_plain_ms"],
         "bound_ms": query["bound_ms"], "bound_by": query["bound_by"],
         "library_ms": query["library_ms"],
@@ -1633,6 +1888,11 @@ def main() -> int:
         "avg_counts_bound_ms_1m_bf16_q8": query["avg_counts_bound_ms_1m_bf16_q8"],
         "launches_extract_path": ext["launches"]["K1"],
         "launches_ingest_query": ingest["k1_query_launches"],
+        "launches_sharded_path": sharded["launches"],
+        "sharded_topk_ms": sharded["ms"], "sharded_topk_again_ms": sharded["again_ms"],
+        "sharded_direct_ms": sharded["direct_ms"],
+        "sharded_direct_again_ms": sharded["direct_again_ms"],
+        "max_abs_err_sharded": sharded["err"],
     }, {
         "name": "K2 TV-L1 pyramid level (clamp, window warp, linearise, primal-dual)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

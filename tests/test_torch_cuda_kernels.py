@@ -355,3 +355,72 @@ def test_t2_matches_torch_roll():
             got = t2.roll(x, torch.tensor([s], dtype=torch.int32, device="cuda"), axis)
             assert t2.LAUNCHES == launches + 1
             assert torch.equal(got, torch.roll(x, s, axis + 1))
+
+
+# -- the scale-out path: K1 on a shard, DDP training --------------------------
+
+@pytest.mark.cuda
+def test_sharded_search_on_a_nccl_world_of_one(tmp_path):
+    """ShardedSearch on a NCCL world of one rank (K1 on the rank's shard, the
+    all-gather, the merge) equals fused_query_topk: ids equal, values
+    bitwise; K1 launched once."""
+    needs_card()
+    import torch.distributed as dist
+
+    from videoquery_torch.core.meshes import initialize_multihost, make_mesh
+    from videoquery_torch.index.store import FeatureIndex
+    from videoquery_torch.search.distributed import ShardedSearch
+
+    f, m, t, tm, w = (a.cuda() for a in k1_inputs(7, 5))
+    f = f.to(torch.bfloat16)
+    initialize_multihost(f"file://{tmp_path / 'store'}", 1, 0, "cuda:0")
+    try:
+        index = FeatureIndex(np.arange(100, 100 + f.shape[2]), f, m,
+                             ("rgb", "warped_optical_flow"), (1, 2, 3), "global_pool")
+        search = ShardedSearch(index, make_mesh("cuda"))
+        launches = k1.LAUNCHES
+        vals, ids = search.topk(t, tm, w, k=10)
+        assert k1.LAUNCHES == launches + 1
+    finally:
+        dist.destroy_process_group()
+    want_vals, want_pos = k1.fused_query_topk(f, m, t, tm, w, k=10)
+    assert np.array_equal(ids, want_pos.cpu().numpy() + 100)
+    assert np.array_equal(vals.view(np.uint32), want_vals.cpu().numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu():
+    """One TSNTrainer step at 64x64 on the card equals the CPU's (loss rtol
+    1e-5, weights rtol 2e-4 / atol 2e-6); the caller's TF32 flags come back
+    after the step; a bf16 forward after the step (the card's optimizer
+    updates the weights in place) uses the new weights."""
+    needs_card()
+    from videoquery_torch.train.trainer import TrainConfig, TSNTrainer
+
+    cfg = TrainConfig(num_segments=2, num_classes=5, dropout_rate=0.0, learning_rate=0.01)
+    params = bi.init_params(3, num_classes=5)
+    rng = np.random.default_rng(4)
+    frames = rng.normal(size=(2, 2, 64, 64, 3)).astype(np.float32)
+    labels = rng.integers(0, 5, size=(2,))
+    card = TSNTrainer(params, cfg, device="cuda:0")
+    x = torch.from_numpy(frames[:, 0]).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        before = card.module.embed(x)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = card.step(frames, labels, seed=0)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    host = TSNTrainer(params, cfg, device="cpu")
+    want = host.step(frames, labels, seed=0)
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    pc, ph = card.params(), host.params()
+    for name in ph:
+        for leaf in ("w", "b"):
+            np.testing.assert_allclose(pc[name][leaf], ph[name][leaf], rtol=2e-4, atol=2e-6)
+    with torch.no_grad():
+        after = card.module.embed(x)
+        fresh = bi.BNInception(pc).to("cuda").embed(x)
+    assert not torch.equal(after, before)
+    assert torch.equal(after, fresh)

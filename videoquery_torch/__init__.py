@@ -24,9 +24,16 @@ package imports nothing of it and keeps its own copies of the jax-free
 modules it needs (``pipeline/sampling.py``, ``pipeline/decode.py``,
 ``testing/fake_api.py``, ``testing/mp_stubs.py``).
 
+Scale-out and training run on ``torch.distributed`` (NCCL between cards,
+Gloo on the CPU): ``search/distributed.py::ShardedSearch`` scores each
+rank's shard of the index on the same CUDA kernel and gathers only the
+[Q, k] candidates; ``train/trainer.py::TSNTrainer`` fine-tunes a
+BN-Inception stream under ``DistributedDataParallel``, with checkpoints in
+``train/checkpoint.py``.
+
 Subpackages mirror ``videoquery``: ``core``, ``index``, ``kernels``, ``nn``,
-``pipeline``, ``search``, ``service``, ``testing``, and ``tools`` for the
-two tool kernels. Their ``__init__`` files import nothing, so any module can
+``pipeline``, ``search``, ``service``, ``testing``, ``train``, and
+``tools`` for the two tool kernels. Their ``__init__`` files import nothing, so any module can
 be imported alone.
 """
 

@@ -18,6 +18,7 @@ from typing import Iterable, Mapping, Sequence
 import numpy as np
 import torch
 
+from videoquery_torch.core.meshes import pad_to_multiple
 from videoquery_torch.index.records import FeatureRecord
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -83,7 +84,7 @@ class FeatureIndex:
         streams = tuple(streams)
         clip_ids = np.asarray(sorted({r.clip_id for r in recs}), np.int64)
         dim = feature_dim or len(recs[0].vector)
-        n_pad = -(-max(len(clip_ids), 1) // pad_multiple) * pad_multiple
+        n_pad = pad_to_multiple(max(len(clip_ids), 1), pad_multiple)
         feats = np.zeros((len(streams), len(splits), n_pad, dim), np.float64)
         mask = np.zeros((len(streams), len(splits), n_pad), bool)
         pos = {int(c): i for i, c in enumerate(clip_ids)}
@@ -160,12 +161,23 @@ class FeatureIndex:
     def position(self, clip_id: int) -> int | None:
         return self._id_to_pos.get(int(clip_id))
 
-    def target_arrays_host(
+    def target_arrays(
         self, target: Mapping[str, Mapping[int, Sequence[float]]]
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Pack a {stream: {split: vector}} target dict into (targets
+        f32[S, K, D], target_mask bool[S, K]) on the index's device, each
+        vector rounded to float32 once, as the JAX package's
+        ``target_arrays`` does."""
+        t, m = self.target_arrays_host(target, np.float32)
+        return torch.from_numpy(t).to(self.device), torch.from_numpy(m).to(self.device)
+
+    def target_arrays_host(
+        self, target: Mapping[str, Mapping[int, Sequence[float]]], dtype=np.float64,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Pack a {stream: {split: vector}} target dict into float64
-        (targets [S, K, D], target_mask bool[S, K]) host arrays."""
-        t = np.zeros((len(self.streams), len(self.splits), self.feature_dim), np.float64)
+        """Pack a {stream: {split: vector}} target dict into host arrays
+        (targets [S, K, D] of `dtype`, float64 unless named;
+        target_mask bool[S, K])."""
+        t = np.zeros((len(self.streams), len(self.splits), self.feature_dim), dtype)
         m = np.zeros((len(self.streams), len(self.splits)), bool)
         for si, stream in enumerate(self.streams):
             for ki, split in enumerate(self.splits):
@@ -173,6 +185,26 @@ class FeatureIndex:
                 if vec is None:  # JSON round-trips may stringify split keys
                     vec = target.get(stream, {}).get(str(split))
                 if vec is not None:
-                    t[si, ki] = np.asarray(vec, np.float64)
+                    t[si, ki] = np.asarray(vec, dtype)
                     m[si, ki] = True
         return t, m
+
+    def shard(self, rank: int, world: int, device: torch.device | str) -> "FeatureIndex":
+        """Rank `rank`'s contiguous share of the padded clip axis, of `world`
+        equal shares, on `device` (a view when it is already there and
+        contiguous, else one copy). The shard keeps the GLOBAL clip_ids on
+        the host, so its ``n_clips`` is the whole index's while its
+        ``n_padded`` is the shard's length; its position p is global
+        position ``rank * n_padded + p``. Raises ValueError unless `world`
+        divides the padded clip axis (build the index with a pad_multiple
+        that is a multiple of the world size)."""
+        if self.n_padded % world != 0:
+            raise ValueError(
+                f"padded clip axis {self.n_padded} not divisible by {world} data "
+                f"shards; build the index with pad_multiple={world} (or a multiple)")
+        n_local = self.n_padded // world
+        rows = slice(rank * n_local, (rank + 1) * n_local)
+        return FeatureIndex(self.clip_ids,
+                            self.feats[:, :, rows].to(device).contiguous(),
+                            self.mask[:, :, rows].to(device).contiguous(),
+                            self.streams, self.splits, self.feature_name)

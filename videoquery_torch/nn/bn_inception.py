@@ -23,7 +23,15 @@ channels-last, so a block's NHWC view is contiguous and T1's output is the
 next layer's input without a copy. Average pooling outside T1 works in the
 activation type; ``global_pool`` is a float32 mean. Weights are cast to a
 working type once, at its first use, and T1's block weights are laid out
-once per (dtype, device).
+once per (dtype, device); both caches are dropped whenever a parameter
+changes (an optimizer step, a load), so a bf16 forward never runs stale
+weights.
+
+The parameters are frozen (``requires_grad=False``) unless a trainer turns
+them on (``train/trainer.py``); the extractor's modules stay frozen. The
+head takes the training-time dropout of the JAX ``apply``: a keep mask
+drawn by the caller (``dropout_keep``), kept values divided by 1 - rate.
+``to_params`` gives the weights back in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -176,6 +184,17 @@ class BNInception(nn.Module):
         self._cast: dict[tuple, dict[str, torch.Tensor]] = {}
         # T1's weights of each stride-1 block, by (dtype, device)
         self._blocks: dict[tuple, dict[str, t1.BlockWeights]] = {}
+        # the parameters' storage and version counters when the caches were
+        # filled: an in-place update (optimizer step, copy_) bumps a version,
+        # a reassignment changes a pointer, and either empties both caches
+        self._cache_stamp: tuple | None = None
+
+    def _check_caches(self) -> None:
+        stamp = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if stamp != self._cache_stamp:
+            self._cast.clear()
+            self._blocks.clear()
+            self._cache_stamp = stamp
 
     def _weight(self, key: str, dtype: torch.dtype) -> torch.Tensor:
         w = self.weights[key]
@@ -194,8 +213,8 @@ class BNInception(nn.Module):
             for key in self.weights:
                 if key.startswith(name + "__"):
                     params[key.replace("__", "/")] = {
-                        "w": self.weights[key].permute(2, 3, 1, 0),    # OIHW -> HWIO
-                        "b": self.biases[key]}
+                        "w": self.weights[key].detach().permute(2, 3, 1, 0),  # OIHW -> HWIO
+                        "b": self.biases[key].detach()}
             blocks[name] = t1.block_weights(params, name, spec, x.dtype, x.device)
         return blocks[name]
 
@@ -238,19 +257,28 @@ class BNInception(nn.Module):
         branches.append(pool)
         return torch.cat(branches, dim=1)
 
-    def forward(self, x: torch.Tensor, head: bool = True) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, head: bool = True,
+                keep: torch.Tensor | None = None,
+                dropout_rate: float = 0.0) -> dict[str, torch.Tensor]:
+        """NHWC x -> {'global_pool': f32 [B, 1024], 'fc-action': f32 [B, C]}
+        (the latter only with the head). ``keep`` (bool [B, 1024], from
+        ``dropout_keep``) applies dropout before fc-action: kept values are
+        divided by 1 - dropout_rate, the others zeroed (the JAX ``apply``)."""
+        if x.dtype != torch.float32:
+            self._check_caches()
         if x.dtype == torch.float32 or not x.is_cuda:
-            return self._forward(x, head)
+            return self._forward(x, head, keep, dropout_rate)
         # bf16 on the card: TF32 for the widened stem and stride-2 convs
         # (a bf16 value is exact in TF32); the f32 networks keep it off
         tf32 = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = True
         try:
-            return self._forward(x, head)
+            return self._forward(x, head, keep, dropout_rate)
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
 
-    def _forward(self, x: torch.Tensor, head: bool) -> dict[str, torch.Tensor]:
+    def _forward(self, x: torch.Tensor, head: bool, keep: torch.Tensor | None,
+                 dropout_rate: float) -> dict[str, torch.Tensor]:
         y = x.permute(0, 3, 1, 2)                  # NHWC -> NCHW
         y = self._conv("conv1/7x7_s2", y)
         y = max_pool(y, 3, 2, 0)
@@ -262,10 +290,34 @@ class BNInception(nn.Module):
         gp = y.float().mean(dim=(2, 3))             # global_pool [B, 1024], f32
         out = {"global_pool": gp}
         if head:
-            out["fc-action"] = gp @ self.fc_w + self.fc_b
+            h = gp
+            if keep is not None:
+                h = torch.where(keep, gp / (1.0 - dropout_rate), 0.0)
+            out["fc-action"] = h @ self.fc_w + self.fc_b
         return out
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         """The 1024-d float32 embedding (the `global_pool` blob) of NHWC
         input."""
         return self.forward(x, head=False)["global_pool"]
+
+    def to_params(self) -> dict[str, dict[str, np.ndarray]]:
+        """The parameters as float32 numpy in the JAX package's layout, the
+        inverse of the constructor: {conv name: {'w': HWIO, 'b': [cout]}},
+        'fc-action': {'w': [1024, C], 'b': [C]}."""
+        def host(t: torch.Tensor) -> np.ndarray:
+            return t.detach().cpu().numpy().copy()
+
+        params = {name: {"w": host(self.weights[name.replace("/", "__")].permute(2, 3, 1, 0)),
+                         "b": host(self.biases[name.replace("/", "__")])}
+                  for name in self.specs}
+        params["fc-action"] = {"w": host(self.fc_w), "b": host(self.fc_b)}
+        return params
+
+
+def dropout_keep(seed: int, shape: tuple[int, ...], rate: float) -> torch.Tensor:
+    """A dropout keep mask on the CPU: each entry True with probability
+    1 - rate, drawn from a ``torch.Generator`` seeded by `seed`, so the same
+    seed gives the same mask on every device and in every process."""
+    g = torch.Generator().manual_seed(int(seed))
+    return torch.rand(shape, generator=g) < (1.0 - rate)

@@ -21,6 +21,24 @@ import torch
 from videoquery_torch.kernels.query import query_k1
 
 
+def ensemble_similarities(
+    targets: torch.Tensor,      # f32[S, K, D]
+    target_mask: torch.Tensor,  # bool[S, K]
+    cands: torch.Tensor,        # [S, K, N, D]
+    cand_mask: torch.Tensor,    # bool[S, K, N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One target's per-(stream, clip) ensemble-averaged similarity, plain
+    torch: (avg_sim f32[S, N], counts int32[S, N]), the batched form of the
+    reference's ``{clip: {stream: [avg_sim, n_ensemble]}}``
+    (ticket.py:124,154-160). f32 products and sums, as the JAX function's
+    HIGHEST-precision einsum."""
+    sims = torch.einsum("sknd,skd->skn", cands.float(), targets.float())
+    mask = cand_mask & target_mask[:, :, None]                  # [S, K, N]
+    counts = mask.sum(dim=1, dtype=torch.int32)                 # [S, N]
+    total = torch.where(mask, sims, 0.0).sum(dim=1)             # [S, N]
+    return total / counts.clamp(min=1).float(), counts
+
+
 def ensemble_similarities_batched(
     targets: torch.Tensor,      # f32[Q, S, K, D]
     target_mask: torch.Tensor,  # bool[Q, S, K]
@@ -57,3 +75,35 @@ def scores_from_similarities(avg_sim: torch.Tensor,
         num = num + dev * dev
         den = den + w * w
     return 1.0 - torch.sqrt(num / den[..., None])
+
+
+def weighted_scores(
+    avg_sim: torch.Tensor,   # f32[S, N]
+    counts: torch.Tensor,    # int32[S, N]
+    weights: torch.Tensor,   # f32[S]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scores of every clip and the validity mask: a clip is valid iff it
+    has at least one ensemble member for every stream; invalid clips score
+    -inf, so they never select as matches."""
+    valid = (counts > 0).all(dim=0)                              # bool[N]
+    scores = scores_from_similarities(avg_sim, weights)
+    return torch.where(valid, scores, -torch.inf), valid
+
+
+def score_weight_grid(
+    avg_sim_reviewed: torch.Tensor,  # f32[2, M] similarities of reviewed clips
+    weight_grid: torch.Tensor,       # f32[W] grid over the second stream's weight
+    pin_first_weight: bool = True,
+) -> torch.Tensor:
+    """Scores of the reviewed clips for every grid weight, f32[W, M]: the
+    first stream's weight pinned at 1.0 and the second's swept, as the
+    reference's optimizer does (hyperparameter.py:58,76). Only 2-stream
+    sweeps, like the reference; only pin_first_weight=True is implemented
+    (the JAX signature keeps the flag)."""
+    if not pin_first_weight:
+        raise NotImplementedError("only the pinned first weight is implemented")
+    s = avg_sim_reviewed
+    w = weight_grid[:, None]
+    num = (1.0 - s[0]) ** 2 + (w * (1.0 - s[1])) ** 2
+    den = 1.0 + w * w
+    return 1.0 - torch.sqrt(num / den)

@@ -446,6 +446,36 @@ def finish_job(
         ticket.change_process_state(STATE_PROCESSED)
 
 
+def process_job(
+    ticket: Ticket,
+    update_type: str,
+    update_object: Mapping[str, Any],
+    hp: HyperParams,
+    *,
+    rng: random.Random | None = None,
+    exact: bool = False,
+    index_cache: SearchSetCache | None = None,
+    device: torch.device | str | None = None,
+) -> None:
+    """One job end-to-end (estimation -> similarity -> finish): the
+    single-job path, kept for direct callers. compute_matches itself batches
+    the similarity pass across jobs. device: where the index lives
+    (core.device.resolve_device; CUDA unless "cpu" is named)."""
+    device = resolve_device(device)
+    estimate_target(ticket, update_object, hp, rng=rng)
+    index = _group_index(ticket, hp, tuple(sorted(ticket._target_splits)),
+                         exact, index_cache, device)
+    engine = SearchEngine(index, exact=exact)
+    big = (not exact
+           and index.n_padded >= SearchConfig().big_round_threshold)
+    if exact:
+        table = engine.compute_similarities(ticket.target_features)
+    else:
+        [table] = engine.compute_similarities_multi(
+            [ticket.target_features], resident=big)
+    finish_job(ticket, update_type, update_object, hp, table, rng=rng)
+
+
 def catch_no_matches_error(ticket: Ticket) -> None:
     """Zero matches is a job-level error (compute_matches.py:110-114)."""
     mround = (
