@@ -143,6 +143,30 @@ Phases, each printing its own lines; any failure exits non-zero:
             equals continuing bit for bit. The step p50, images/s and the
             peak of torch.cuda.max_memory_allocated; a JSON line
             {"scale_out": ..., "train": ...} before the card's line.
+14. sharded extraction and tools  on that world, phase 8's video again
+            (8 full clips and a tail, 340x256) through
+            Extractor(mesh=make_mesh("cuda")) (the production config,
+            PRODUCTION_TVL1, 3 splits x 2 streams), f32 then bf16: its
+            signatures equal the unsharded Extractor's bit for bit, and the
+            sharded run (counts set to 0 just before it) must launch K2 and
+            K3, and T1 in bf16, and call the sharded code's NCCL all-gathers
+            (the rescue's peaks, the model shard's embeddings, the data
+            shard's signatures; each over a group of one); clips/s of both
+            over the video (host payload included), in turns. Then the extraction measurement tools at
+            production geometry, each with its table on its own lines and
+            K2's, K3's and T1's launches counted around it:
+            videoquery_torch.tools.flow_bench --levels (500 pairs at 128x128,
+            one call of 500), warm_stages (8 clips x 150 frames),
+            extract_stages (bf16), pipeline_overlap (A, B and C; B's and C's
+            signatures equal A's bit for bit, batch by batch over two distinct
+            frame sets), tick_sweep --seeds 0 --ticks 25 10 (150-frame
+            clips), parity_embeddings --selftest, and, after the world is
+            closed, scaling_curve --device cuda --diag --dtype bfloat16 (the
+            production step, 8 clips x 150 frames, PRODUCTION_TVL1, 3
+            splits, in a spawned world of one rank, which counts its own
+            launches); the bf16 tools must launch T1; 3 reps each where the
+            tools default to 8-10. A JSON line {"sharded_extract": ...,
+            "tools": ...} before the card's line.
 
 Beside each kernel's time the kernels line gives its bound on an H100 SXM
 (the larger of its compulsory bytes over 3.35 TB/s and its operations over
@@ -1804,6 +1828,128 @@ def phase_train(dev, mesh, tmp: str, videos=32, steps=10, flow_steps=3) -> dict:
     return out
 
 
+# -- phase 14 -----------------------------------------------------------------
+
+def phase_sharded_extract(dev, mesh, tmp: str, n_frames=8 * 150 + 40) -> dict:
+    """Extractor(mesh=...) on the NCCL world of one rank against the
+    unsharded Extractor on phase 8's video, f32 then bf16: bitwise equal
+    signatures; K2, K3 (and T1 in bf16) launched by the sharded run, and
+    its sharded code run (NCCL all-gathers of the rescue's peaks, the model
+    shard's embeddings and the data shard's signatures); clips/s of both
+    over the whole video, in turns."""
+    import numpy as np
+
+    from videoquery_torch.kernels import inception_block as t1
+    from videoquery_torch.kernels import tvl1_level as k2, window_warp as k3
+    from videoquery_torch.nn.tsn import TwoStreamTSN
+    from videoquery_torch.pipeline import decode, extract
+
+    video = os.path.join(tmp, "synthetic_pan_zoom.mp4")
+    write_synthetic_video(video, n_frames)
+    tsn = TwoStreamTSN.random(0, (1, 2, 3), dev)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        plain = extract.Extractor(tsn, device=dev, dtype=dtype)
+        sharded = extract.Extractor(tsn, device=dev, dtype=dtype, mesh=mesh)
+        frames = decode.load_video(video, new_size=plain._decode_size())
+        want = extract.gather_signatures(list(plain.extract_frames(frames)))
+        gathers = {}
+        gather = extract.all_gather_cat
+
+        def spy(x, group, dim=0):
+            # the sharded code's NCCL all-gathers, by the function calling
+            site = sys._getframe(1).f_code.co_name
+            gathers[site] = gathers.get(site, 0) + 1
+            return gather(x, group, dim)
+
+        k2.LAUNCHES = k3.LAUNCHES = t1.LAUNCHES = 0
+        extract.all_gather_cat = spy
+        try:
+            got = extract.gather_signatures(list(sharded.extract_frames(frames)))  # main path
+        finally:
+            extract.all_gather_cat = gather
+        launches = {"K2": k2.LAUNCHES, "K3": k3.LAUNCHES, "T1": t1.LAUNCHES}
+        sites = {"_dispatch_payload", "ensemble_embed", "_rescue_fast_motion"}
+        assert set(gathers) == sites, f"the sharded run skipped an all-gather: {gathers}"
+        nums = [s.clip_numbers for s in got]
+        assert nums == [s.clip_numbers for s in want] == [list(range(1, 9)), [9]], nums
+        for g, w in zip(got, want):
+            for a, b in ((g.rgb, w.rgb), (g.flow, w.flow)):
+                assert a.shape == b.shape and np.isfinite(a).all()
+                assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), (
+                    f"sharded {dtype} signatures differ from the unsharded extractor's")
+        need = ("K2", "K3") + (("T1",) if dtype == "bfloat16" else ())
+        for name in need:
+            assert launches[name] > 0, f"the sharded {dtype} extraction never launched {name}"
+
+        def run(ex):
+            return extract.gather_signatures(list(ex.extract_frames(frames)))
+
+        t_plain = p50_ms(lambda: run(plain), 2, warmup=0)
+        t_sharded = p50_ms(lambda: run(sharded), 2, warmup=0)
+        t_sharded2 = p50_ms(lambda: run(sharded), 2, warmup=0)
+        t_plain2 = p50_ms(lambda: run(plain), 2, warmup=0)
+        rate = {k: 9e3 / v for k, v in (("plain", t_plain), ("sharded", t_sharded),
+                                          ("sharded_again", t_sharded2),
+                                          ("plain_again", t_plain2))}
+        log(f"[sharded_extract] {dtype}: Extractor(mesh=make_mesh('cuda')) on a NCCL world "
+            f"of 1, 9 clips (a batch of 8 and the tail): signatures bitwise equal to the "
+            f"unsharded Extractor's; launches {launches}; NCCL all-gathers by caller "
+            f"{gathers}; clips/s over the video (decoded "
+            f"frames -> signatures) unsharded {rate['plain']:.2f} / {rate['plain_again']:.2f}, "
+            f"sharded {rate['sharded']:.2f} / {rate['sharded_again']:.2f}")
+        out[dtype] = {"launches": launches, "all_gathers": gathers, "bitwise_equal": True,
+                      "clips_per_s": rate}
+        del frames
+    return out
+
+
+def phase_tools(dev) -> dict:
+    """The extraction measurement tools at production geometry, each run
+    in this process through its run() (scaling_curve spawns its world),
+    with K2's, K3's and T1's launches counted around each."""
+    from videoquery_torch.kernels import inception_block as t1
+    from videoquery_torch.kernels import tvl1_level as k2, window_warp as k3
+    from videoquery_torch.tools import (extract_stages, flow_bench, parity_embeddings,
+                                        pipeline_overlap, scaling_curve, tick_sweep,
+                                        warm_stages)
+
+    runs = (("flow_bench", flow_bench.run, ["--levels", "--sweep", "500", "--reps", "3"]),
+            ("warm_stages", warm_stages.run, ["--reps", "3"]),
+            ("extract_stages", extract_stages.run, ["--reps", "3"]),
+            ("pipeline_overlap", pipeline_overlap.run, ["--reps", "3"]),
+            ("tick_sweep", tick_sweep.run, ["--seeds", "0", "--ticks", "25", "10",
+                                            "--bench_reps", "3"]),
+            ("parity_embeddings", parity_embeddings.selftest, None),
+            ("scaling_curve", scaling_curve.run, ["--device", "cuda", "--diag", "--dtype",
+                                                  "bfloat16", "--reps", "3"]))
+    bf16_tools = ("extract_stages", "pipeline_overlap", "scaling_curve")
+    out = {}
+    for name, fn, argv in runs:
+        log(f"[tools] python -m videoquery_torch.tools.{name} "
+            + ("--selftest" if argv is None else " ".join(argv)))
+        k2.LAUNCHES = k3.LAUNCHES = t1.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = fn() if argv is None else fn(argv)
+        seconds = time.perf_counter() - t0
+        launches = {"K2": k2.LAUNCHES, "K3": k3.LAUNCHES, "T1": t1.LAUNCHES}
+        if name == "parity_embeddings":
+            res = {"worst_repeat_cosine": res}
+        res = {k: v for k, v in res.items() if k != "outputs"}
+        if name == "scaling_curve":      # its rank ran in a process of its own
+            launches = res["rows"][0]["launches"]
+        log(f"[tools] {name}: {seconds:.1f} s, launches {launches}")
+        if not (launches["K2"] and launches["K3"]):
+            raise AssertionError(f"{name} launched no K2 or K3: {launches}")
+        if name in bf16_tools and not launches["T1"]:
+            raise AssertionError(f"{name} runs bf16 networks but launched no T1: {launches}")
+        out[name] = {"seconds": seconds, "launches": launches, **res}
+    if not all(out["pipeline_overlap"]["bitwise_equal_to_a"].values()):
+        raise AssertionError("pipeline_overlap: B or C differs from A")
+    assert out["extract_stages"]["rows"][-1]["ms"] > 0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1862,12 +2008,15 @@ def main() -> int:
             mesh = make_mesh("cuda")
             sharded = phase_sharded(dev, mesh, query)
             train = phase_train(dev, mesh, tmp)
+            sharded_extract = phase_sharded_extract(dev, mesh, tmp)
         finally:
             dist.destroy_process_group()
+    tools = phase_tools(dev)
 
     print(json.dumps({"ingest": ingest}))
     print(json.dumps({"flow_quality": quality}))
     print(json.dumps({"scale_out": sharded, "train": train}))
+    print(json.dumps({"sharded_extract": sharded_extract, "tools": tools}))
     log(card_line())  # the card and its power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "K1 fused query scoring (avg+counts and scores epilogues)",
@@ -1910,6 +2059,8 @@ def main() -> int:
         "launches_flow_quality_final": quality["final"]["launches"]["K2"],
         "max_abs_err_flow_quality": quality["checked"]["K2"]["err"],
         "flow_quality_checked": quality["checked"]["K2"]["cases"],
+        "launches_sharded_extract": {d: r["launches"]["K2"] for d, r in sharded_extract.items()},
+        "launches_tools": {t: r["launches"]["K2"] for t, r in tools.items()},
     }, {
         "name": "K3 window warp (separable and full)",
         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
@@ -1926,6 +2077,8 @@ def main() -> int:
         "launches_flow_quality_final": quality["final"]["launches"]["K3"],
         "max_abs_err_flow_quality": quality["checked"]["K3"]["err"],
         "flow_quality_checked": quality["checked"]["K3"]["cases"],
+        "launches_sharded_extract": {d: r["launches"]["K3"] for d, r in sharded_extract.items()},
+        "launches_tools": {t: r["launches"]["K3"] for t, r in tools.items()},
     }, {
         "name": "T1 fused stride-1 Inception block (bf16: an x-tile and two 3x3 wgmma "
                 "implicit-GEMM launches per call)",
@@ -1954,6 +2107,8 @@ def main() -> int:
         "rgb_nets_trace": ext["rgb_nets_trace"],
         "cuda_tests_passed": cuda_tests,
         "launches_ingest_path": ingest["launches"]["T1"],
+        "launches_sharded_extract_bf16": sharded_extract["bfloat16"]["launches"]["T1"],
+        "launches_tools": {t: r["launches"]["T1"] for t, r in tools.items()},
     }, {
         "name": "T2 roll by a shift read from device memory",
         "route": "cuda", "source": T2_SOURCE, "replaces": T2_REPLACES,

@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's jax-free modules against the
 originals: ``pipeline/sampling.py``, ``pipeline/decode.py``,
-``testing/{fake_api,serve_fake_api,mp_stubs}.py``.
+``testing/{fake_api,serve_fake_api,mp_stubs}.py``, ``nn/prototxt.py``, and
+``testing/caffe_wire.py`` (the caffemodel writer of tests/test_nn.py).
 
 The port imports nothing of the JAX package, so it carries these copies; a
 copy that drifts from its original is caught here. Equality is exact: the
@@ -21,16 +22,20 @@ import pytest
 import torch
 
 from conftest import REFERENCE_FIXTURES
+import test_nn
+from test_torch_prototxt import TINY
+from videoquery.nn import prototxt as jprototxt
 from videoquery.pipeline import decode as jdecode
 from videoquery.pipeline import sampling as jsampling
 from videoquery.testing import fake_api as jfake
 from videoquery.testing import mp_stubs as jstubs
 from videoquery_torch.core.config import HyperParams
+from videoquery_torch.nn import prototxt
 from videoquery_torch.pipeline import decode, sampling
 from videoquery_torch.service.compute_matches import compute_matches
 from videoquery_torch.service.loader import DBLoader
 from videoquery_torch.service.repository import APIRepository
-from videoquery_torch.testing import fake_api, mp_stubs, serve_fake_api
+from videoquery_torch.testing import caffe_wire, fake_api, mp_stubs, serve_fake_api
 
 # tier-1 runs 6 test workers on 8 CPUs: two intra-op threads each keep torch
 # from starving the timing tests that share the machine
@@ -86,10 +91,11 @@ def code_of(fn) -> str:
     return ast.dump(node)
 
 
-@pytest.mark.parametrize("copy,original", [(decode, jdecode), (mp_stubs, jstubs)])
+@pytest.mark.parametrize("copy,original", [(decode, jdecode), (mp_stubs, jstubs),
+                                           (prototxt, jprototxt)])
 def test_copied_functions_have_the_original_code(copy, original):
-    """Every function of decode.py and mp_stubs.py is in the copy with the
-    same code (docstrings aside)."""
+    """Every function of decode.py, mp_stubs.py and prototxt.py is in the
+    copy with the same code (docstrings aside)."""
     names = [n for n, f in vars(original).items()
              if inspect.isfunction(f) and f.__module__ == original.__name__]
     assert names
@@ -218,3 +224,40 @@ def test_serve_fake_api_answers_over_http():
         thread.join(timeout=10)
     assert not thread.is_alive()
     assert isinstance(serve_fake_api.api, fake_api.FakeAPI)
+
+
+def test_prototxt_copy_parses_as_the_original(tmp_path):
+    """The same message tree from the same text and file, the token
+    pattern unchanged, the same refusals."""
+    assert prototxt._TOKEN.pattern == jprototxt._TOKEN.pattern
+    assert prototxt.parse(TINY) == jprototxt.parse(TINY)
+    path = tmp_path / "tiny.prototxt"
+    path.write_text(TINY)
+    assert prototxt.load_net(str(path)) == jprototxt.load_net(str(path))
+    assert prototxt.as_list(None) == jprototxt.as_list(None) == []
+    for bad in ("layer { ! }", "12"):
+        with pytest.raises(ValueError):
+            jprototxt.parse(bad)
+        with pytest.raises(ValueError):
+            prototxt.parse(bad)
+
+
+WIRE = ("_varint", "_len_field", "_blob", "_layer", "_scalar_field", "_blob_v1", "_layer_v1")
+
+
+@pytest.mark.parametrize("name", WIRE)
+def test_caffe_wire_copy_has_the_tests_code(name):
+    assert code_of(getattr(caffe_wire, name)) == code_of(getattr(test_nn, name))
+
+
+def test_caffe_wire_copy_writes_the_same_bytes(rng):
+    w = rng.normal(size=(8, 4, 3, 3)).astype(np.float32)
+    b = rng.normal(size=(8,)).astype(np.float32)
+    fc = rng.normal(size=(101, 1024)).astype(np.float32)
+    for n in (0, 1, 127, 128, 300, 2 ** 31):
+        assert caffe_wire._varint(n) == test_nn._varint(n)
+    assert caffe_wire._layer("conv1/7x7_s2", "Convolution", [w, b]) == \
+        test_nn._layer("conv1/7x7_s2", "Convolution", [w, b])
+    assert caffe_wire._layer_v1("fc-action", 14, [fc, np.zeros(101, np.float32)]) == \
+        test_nn._layer_v1("fc-action", 14, [fc, np.zeros(101, np.float32)])
+    assert caffe_wire._len_field(1, b"net") == test_nn._len_field(1, b"net")

@@ -424,3 +424,59 @@ def test_train_step_on_the_card_matches_the_cpu():
         fresh = bi.BNInception(pc).to("cuda").embed(x)
     assert not torch.equal(after, before)
     assert torch.equal(after, fresh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sharded_extractor_on_a_nccl_world_of_one(tmp_path, dtype):
+    """Extractor(mesh=make_mesh("cuda")) on a NCCL world of one rank equals
+    the unsharded Extractor bit for bit on a small video (a 2-clip batch
+    and a tail, warped flow on K3 and K2, 2 splits; T1 in bf16), launches
+    K2 and K3 (and T1 in bf16), and runs the sharded code: NCCL
+    all-gathers of the rescue's peaks, of the model shard's embeddings and
+    of the data shard's signatures."""
+    needs_card()
+    import sys
+
+    import torch.distributed as dist
+
+    from videoquery_torch.core.config import ExtractionConfig
+    from videoquery_torch.core.meshes import initialize_multihost, make_mesh
+    from videoquery_torch.nn.tsn import TwoStreamTSN
+    from videoquery_torch.pipeline import extract
+    from videoquery_torch.pipeline.extract import Extractor, gather_signatures
+
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 255, (26, 96, 128, 3), np.uint8)
+    cfg = ExtractionConfig(fps=5, clip_seconds=2, num_ticks=3, frame_resize=(128, 96),
+                           crop_size=64, batch_clips=2, min_tail_seconds=1)
+    tsn = TwoStreamTSN.random(0, (1, 2), "cuda:0")
+    want = gather_signatures(list(Extractor(tsn, cfg, device="cuda:0", dtype=dtype)
+                                  .extract_frames(frames)))
+    initialize_multihost(f"file://{tmp_path / 'store'}", 1, 0, "cuda:0")
+    try:
+        ex = Extractor(tsn, cfg, device="cuda:0", dtype=dtype, mesh=make_mesh("cuda"))
+        sites = set()
+        gather = extract.all_gather_cat
+
+        def spy(x, group, dim=0):
+            assert x.is_cuda
+            sites.add(sys._getframe(1).f_code.co_name)
+            return gather(x, group, dim)
+
+        k2.LAUNCHES = k3.LAUNCHES = t1.LAUNCHES = 0
+        extract.all_gather_cat = spy
+        try:
+            got = gather_signatures(list(ex.extract_frames(frames)))
+        finally:
+            extract.all_gather_cat = gather
+        launches = (k2.LAUNCHES, k3.LAUNCHES, t1.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    assert sites == {"_dispatch_payload", "ensemble_embed", "_rescue_fast_motion"}, sites
+    assert [s.clip_numbers for s in got] == [s.clip_numbers for s in want] == [[1, 2], [3]]
+    for g, w in zip(got, want):
+        assert np.array_equal(g.rgb.view(np.uint32), w.rgb.view(np.uint32))
+        assert np.array_equal(g.flow.view(np.uint32), w.flow.view(np.uint32))
+    assert launches[0] > 0 and launches[1] > 0, launches
+    assert (launches[2] > 0) == (dtype == "bfloat16"), launches

@@ -272,6 +272,11 @@ def test_extractor_refuses_what_is_not_ported():
                         ExtractionConfig(), True, TVL1Params(), flow_impl="gather")
 
 
+# the extraction measurement tools ported beside flow_quality
+NEW_TOOLS = ("flow_bench", "warm_stages", "extract_stages", "pipeline_overlap",
+             "tick_sweep", "parity_embeddings", "scaling_curve")
+
+
 def test_extraction_imports_without_jax():
     """Importing every module of the port, and the module of the `cuda`
     tests that runs on the card without jax (with its inputs' module
@@ -290,6 +295,10 @@ def test_extraction_imports_without_jax():
             "assert not bad, bad\n"
             "assert 'videoquery_torch.tools.inception_block_bench' in sys.modules\n"
             "assert 'videoquery_torch.tools.flow_quality' in sys.modules\n"
+            f"for tool in {NEW_TOOLS!r}:\n"
+            "    assert 'videoquery_torch.tools.' + tool in sys.modules, tool\n"
+            "assert 'videoquery_torch.nn.prototxt_net' in sys.modules\n"
+            "assert 'videoquery_torch.testing.caffe_wire' in sys.modules\n"
             "assert '_torch_cases' in sys.modules\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -313,7 +322,11 @@ def imported_modules(path: str) -> set[str]:
 
 @pytest.mark.parametrize("where", ["chip_smoke.py", "videoquery_torch",
                                    "videoquery_torch/tools/flow_quality.py",
-                                   "tests/test_torch_cuda_kernels.py", "tests/_torch_cases.py"])
+                                   "tests/test_torch_cuda_kernels.py", "tests/_torch_cases.py"]
+                         + [f"videoquery_torch/tools/{t}.py" for t in NEW_TOOLS]
+                         + ["videoquery_torch/nn/prototxt.py",
+                            "videoquery_torch/nn/prototxt_net.py",
+                            "videoquery_torch/testing/caffe_wire.py"])
 def test_port_sources_import_nothing_of_the_jax_package(where):
     """No import statement in chip_smoke.py, any module of the port, the
     module of the `cuda` tests or its inputs' module names jax, the JAX package (videoquery.*) or

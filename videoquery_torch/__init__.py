@@ -22,19 +22,24 @@ dynamic-shift roll (``kernels/csrc/roll.cu``,
 ``videoquery`` is the reference this package is tested against; this
 package imports nothing of it and keeps its own copies of the jax-free
 modules it needs (``pipeline/sampling.py``, ``pipeline/decode.py``,
-``testing/fake_api.py``, ``testing/mp_stubs.py``).
+``testing/fake_api.py``, ``testing/mp_stubs.py``, ``nn/prototxt.py``, and
+``testing/caffe_wire.py``, the caffemodel writer of the JAX package's tests).
 
 Scale-out and training run on ``torch.distributed`` (NCCL between cards,
 Gloo on the CPU): ``search/distributed.py::ShardedSearch`` scores each
 rank's shard of the index on the same CUDA kernel and gathers only the
-[Q, k] candidates; ``train/trainer.py::TSNTrainer`` fine-tunes a
-BN-Inception stream under ``DistributedDataParallel``, with checkpoints in
+[Q, k] candidates; ``pipeline/extract.py::Extractor(mesh=...)`` splits
+clip batches over the mesh's "data" axis and each stream's splits over
+"model"; ``train/trainer.py::TSNTrainer`` fine-tunes a BN-Inception
+stream under ``DistributedDataParallel``, with checkpoints in
 ``train/checkpoint.py``.
 
 Subpackages mirror ``videoquery``: ``core``, ``index``, ``kernels``, ``nn``,
 ``pipeline``, ``search``, ``service``, ``testing``, ``train``, and
-``tools`` for the two tool kernels. Their ``__init__`` files import nothing, so any module can
-be imported alone.
+``tools`` (the tool kernels' A/B and repro tools, the flow-quality gate and the
+extraction measurement tools). Their ``__init__`` files name the JAX
+twin's package-level names and import each only when it is asked for
+(``_lazy.py``), so any module can be imported alone.
 """
 
 __version__ = "0.1.0"

@@ -7,8 +7,9 @@ axes as the JAX mesh does:
 
 - "data"  — clips and index rows: the sharded search's shards, the
   trainer's batch shards;
-- "model" — the (stream, split) ensemble or a larger backbone; nothing in
-  the port splits over it yet, so its size is 1 unless a caller asks.
+- "model" — the (stream, split) ensemble: the sharded extractor runs each
+  rank's share of every stream's splits (``pipeline/extract.py``); its
+  size is 1 unless a caller asks.
 
 The backend follows the device the caller names: NCCL for a CUDA device,
 Gloo for the CPU (the tests). No call switches backend on failure. NCCL
@@ -67,3 +68,17 @@ def make_mesh(device_type: str, model_parallel: int = 1):
 def data_rank_and_size(mesh) -> tuple[int, int]:
     """This rank's coordinate along the mesh's "data" axis, and its size."""
     return mesh.get_local_rank(DATA_AXIS), mesh.size(mesh.mesh_dim_names.index(DATA_AXIS))
+
+
+def model_rank_and_size(mesh) -> tuple[int, int]:
+    """This rank's coordinate along the mesh's "model" axis, and its size."""
+    return mesh.get_local_rank(MODEL_AXIS), mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS))
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's x (equal shapes) over ``group``, concatenated along
+    ``dim`` in rank order, on every rank. The list form of
+    ``dist.all_gather``: the one Gloo takes."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)

@@ -110,6 +110,24 @@ class FeatureIndex:
         return index
 
     @staticmethod
+    def from_feature_dicts(
+        per_clip: Mapping[int, Mapping[str, Mapping[int, Sequence[float]]]],
+        streams: Sequence[str],
+        feature_name: str = "global_pool",
+        **kwargs,
+    ) -> "FeatureIndex":
+        """Build from {clip_id: {stream: {split: vector}}} (the shape the
+        service layer assembles from API responses); ``kwargs`` go to
+        ``build`` (``device`` among them)."""
+        records = [
+            FeatureRecord(cid, stream, split, feature_name, np.asarray(vec))
+            for cid, sd in per_clip.items()
+            for stream, kd in sd.items()
+            for split, vec in kd.items()
+        ]
+        return FeatureIndex.build(records, streams, feature_name=feature_name, **kwargs)
+
+    @staticmethod
     def from_numpy(
         clip_ids: np.ndarray,
         feats: np.ndarray,

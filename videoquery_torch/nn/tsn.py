@@ -58,6 +58,23 @@ class StreamEnsemble:
             {s: init_params(seed + s, in_channels) for s in splits},
             in_channels, device)
 
+    def shard(self, model_rank: int, model_size: int) -> "StreamEnsemble":
+        """The splits of model shard ``model_rank`` of ``model_size``: a
+        contiguous run of K / model_size splits in split order (the JAX
+        package's P("model") of the stacked parameters). The nets are the
+        same modules, not copies, so their bf16 weight and T1 block caches
+        stay theirs. ValueError unless model_size divides K."""
+        k = len(self.nets)
+        if model_size < 1 or k % model_size:
+            raise ValueError(f"a model axis of {model_size} does not divide the "
+                             f"{k} splits of the ensemble")
+        if not 0 <= model_rank < model_size:
+            raise ValueError(f"model rank {model_rank} outside a model axis of {model_size}")
+        per = k // model_size
+        lo = model_rank * per
+        return StreamEnsemble(self.nets[lo:lo + per], self.splits[lo:lo + per],
+                              self.in_channels)
+
     @torch.no_grad()
     def embed(self, frames: torch.Tensor) -> torch.Tensor:
         """NHWC [B, H, W, C] -> [K, B, 1024]."""

@@ -26,7 +26,14 @@ device is explicit: CUDA unless the caller (or ``VIDEOQUERY_DEVICE``) names
 the CPU, where the kernels' plain versions run. TF32 is turned off in the
 entry points: the camera's cross-correlation argmax moves under it.
 
-Not ported yet: mesh sharding.
+With a (data, model) mesh (``core.meshes.make_mesh``), ``Extractor`` runs
+as one process a device, every rank on the same videos: each builds the
+batch's host payload, uploads only its data shard of the clips (a tail
+shorter than the data axis is padded with its last clip), solves their
+flow (a fast-motion rescue chooses among the pairs of the whole batch),
+runs only its model shard of each stream's splits, and an all-gather over
+each axis assembles {stream: [K, B, 1024]} on every rank in split order.
+Only the rank at data and model coordinate 0 writes CSVs.
 
     python -m videoquery_torch.pipeline.extract synthetic --out feats/ [--dtype bfloat16]
     python -m videoquery_torch.pipeline.extract videos/ --out feats/ --workers 4 \
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import time
 from typing import Iterator
@@ -46,6 +54,9 @@ import torch
 
 from videoquery_torch.core.config import FLOW, RGB, ExtractionConfig
 from videoquery_torch.core.device import resolve_device
+from videoquery_torch.core.meshes import (DATA_AXIS, MODEL_AXIS, all_gather_cat,
+                                          data_rank_and_size, model_rank_and_size,
+                                          pad_to_multiple)
 from videoquery_torch.index.csvio import write_features_csv
 from videoquery_torch.index.records import FeatureRecord
 from videoquery_torch.kernels.resize import linear_matrix, resize2
@@ -57,7 +68,7 @@ from videoquery_torch.kernels.tvl1_flow import (tvl1_flow, tvl1_flow_warm,
                                                 tvl1_warped_flow_cam,
                                                 tvl1_warped_flow_warm)
 from videoquery_torch.kernels.window_warp import window_warp
-from videoquery_torch.nn.tsn import TwoStreamTSN
+from videoquery_torch.nn.tsn import StreamEnsemble, TwoStreamTSN
 from videoquery_torch.pipeline import decode
 from videoquery_torch.pipeline.payload import (BatchPayload, build_payload,
                                                flow_grid_shape, plan_groups,
@@ -85,6 +96,14 @@ PRODUCTION_TVL1 = TVL1Params(n_scales=4, n_warps=3, fine_warps=2,
 # "pallas": the pairs the stacks use, on K2 and K3; "xla": every pair of the
 # clip on the gather-warp solver
 FLOW_IMPLS = ("pallas", "xla")
+
+
+def default_flow_impl() -> str:
+    """The port's flow solver on every device: "pallas", K2 and K3 (their
+    plain versions on the CPU). The JAX package picks its Pallas kernels on
+    a TPU and the gather solver elsewhere; here "xla" runs only where a
+    caller names it."""
+    return "pallas"
 
 
 def check_flow_impl(flow_impl: str) -> None:
@@ -130,8 +149,35 @@ def _clip_flow(gray: torch.Tensor, bound: float, warped: bool, tvl1: TVL1Params,
     return quantize_flow(torch.cat([uv, uv[:, -1:]], dim=1), bound)
 
 
+@dataclasses.dataclass(frozen=True)
+class DataShard:
+    """This rank's share of a batch split over the mesh's "data" axis: the
+    rank's clips are rows [rank * per, (rank + 1) * per) of the batch
+    padded to size * per clips; its first ``rows`` clips are real, of the
+    batch's ``total_rows``."""
+
+    group: object          # the process group of the "data" axis
+    rank: int
+    size: int
+    per: int
+    rows: int
+    total_rows: int
+
+    @staticmethod
+    def of(group, rank: int, size: int, total_rows: int) -> "DataShard":
+        per = pad_to_multiple(total_rows, size) // size
+        rows = max(0, min(total_rows - rank * per, per))
+        return DataShard(group, rank, size, per, rows, total_rows)
+
+    def take(self) -> np.ndarray:
+        """The batch rows this rank holds; a padding row repeats the last
+        clip."""
+        return np.minimum(np.arange(self.rank * self.per, (self.rank + 1) * self.per),
+                          self.total_rows - 1)
+
+
 def _rescue_fast_motion(i0, i1, u, v, warped: bool, tvl1: TVL1Params,
-                        max_disp: int = 6):
+                        max_disp: int = 6, shard: DataShard | None = None):
     """Re-solve clamp-saturated pairs cold with a doubled window.
 
     i0/i1 f32 [N, h, w] raw pair images, u/v their solved flow. A pair
@@ -140,17 +186,36 @@ def _rescue_fast_motion(i0, i1, u, v, warped: bool, tvl1: TVL1Params,
     the triggered ones among them replaced. The JAX package does this under
     lax.cond; here one host sync per batch decides. torch.topk may order
     ties differently from lax.top_k, but only triggered pairs are replaced,
-    so the order of ties among the others does not matter."""
+    so the order of ties among the others does not matter.
+
+    With a shard (pairs clip-major, the same count for each clip) the
+    choice is the whole batch's, as in the JAX package's sharded program:
+    the peaks are all-gathered over the data axis, the pairs of padding
+    clips never chosen, and each rank re-solves its own chosen pairs."""
     n, h, w = u.shape
-    k = max(1, int(round(n * tvl1.rescue_frac)))
     mag = torch.maximum(u.abs(), v.abs())
     pooled = mag[:, :h // 4 * 4, :w // 4 * 4].reshape(
         n, h // 4, 4, w // 4, 4).mean(dim=(2, 4))
     peak = pooled.reshape(n, -1).amax(dim=1)
+    if shard is None:
+        k = max(1, int(round(n * tvl1.rescue_frac)))
+    else:
+        per_clip = n // shard.per
+        real = torch.arange(n, device=peak.device) < shard.rows * per_clip
+        peak = all_gather_cat(torch.where(real, peak, -math.inf), shard.group)
+        k = max(1, int(round(shard.total_rows * per_clip * tvl1.rescue_frac)))
     trig = peak >= tvl1.rescue_trigger * max_disp
     if not bool(trig.any()):
         return u, v
     idx = torch.topk(peak, k).indices
+    if shard is not None:
+        # the chosen pairs of this rank's shard, as its local positions
+        lo = shard.rank * n
+        mine = (idx >= lo) & (idx < lo + n)
+        trig = trig[lo:lo + n]
+        idx = idx[mine] - lo
+        if idx.numel() == 0:
+            return u, v
     wide_fn = tvl1_warped_flow if warped else tvl1_flow
     uw, vw = wide_fn(i0[idx].contiguous(), i1[idx].contiguous(), tvl1,
                      max_disp=2 * max_disp)
@@ -163,7 +228,7 @@ def _rescue_fast_motion(i0, i1, u, v, warped: bool, tvl1: TVL1Params,
 
 def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
                   tvl1: TVL1Params, warm_plan=None, warm_camera: str = "own",
-                  warm_advect: int = 0):
+                  warm_advect: int = 0, shard: DataShard | None = None):
     """Raw (u, v) flow of the selected frame pairs, f32 [B, P, h, w] in
     flow-grid pixels. warm_plan (key_pos, warm_pos, warm_src) turns on the
     temporal warm start (sampling.flow_warm_plan): key pairs solve the full
@@ -175,7 +240,8 @@ def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
     key samples the key's flow where the content came from, u0(x) =
     u_key(x - j * u_key(x)), one K3 call with window d = warm_advect, which
     must cover max |j| * the flow (group // 2 * 8 at the production
-    schedule)."""
+    schedule). shard: gray is this rank's data shard (the rescue's
+    choice is the whole batch's)."""
     b, f, h, w = gray.shape
     i0 = gray[:, pair_idx]
     i1 = gray[:, pair_idx + 1]
@@ -186,7 +252,7 @@ def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
         i1f = i1.reshape(b * p, h, w)
         u, v = flow_fn(i0f, i1f, tvl1)
         if tvl1.rescue_frac > 0:
-            u, v = _rescue_fast_motion(i0f, i1f, u, v, warped, tvl1)
+            u, v = _rescue_fast_motion(i0f, i1f, u, v, warped, tvl1, shard=shard)
         return u.reshape(b, p, h, w), v.reshape(b, p, h, w)
 
     key_pos, warm_pos, warm_src = warm_plan
@@ -232,7 +298,8 @@ def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
         uf, vf = _rescue_fast_motion(i0.reshape(b * p, h, w),
                                      i1.reshape(b * p, h, w),
                                      u.reshape(b * p, h, w),
-                                     v.reshape(b * p, h, w), warped, tvl1)
+                                     v.reshape(b * p, h, w), warped, tvl1,
+                                     shard=shard)
         u = uf.reshape(b, p, h, w)
         v = vf.reshape(b, p, h, w)
     return u, v
@@ -240,11 +307,12 @@ def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
 
 def _pair_flow(gray, pair_idx, bound: float, warped: bool, tvl1: TVL1Params,
                value_scale: tuple[float, float], warm_plan=None,
-               warm_camera: str = "own", warm_advect: int = 0) -> torch.Tensor:
+               warm_camera: str = "own", warm_advect: int = 0,
+               shard: DataShard | None = None) -> torch.Tensor:
     """Quantized flow of the selected pairs: u8 [B, P, h, w, 2]. value_scale
     (sx, sy) converts flow-grid pixels to native pixels."""
     u, v = _pair_flow_uv(gray, pair_idx, warped, tvl1, warm_plan, warm_camera,
-                         warm_advect)
+                         warm_advect, shard)
     uv = torch.stack([u * value_scale[0], v * value_scale[1]], dim=-1)
     return quantize_flow(uv, bound)
 
@@ -349,26 +417,29 @@ def step_plan(f_len: int, cfg: ExtractionConfig, flow_impl: str, device) -> Step
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-@torch.no_grad()
-def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
-                 cfg: ExtractionConfig, warped: bool, tvl1: TVL1Params,
-                 dtype: str = "float32", gray_u8: torch.Tensor | None = None,
-                 native_hw: tuple[int, int] | None = None, flow_impl: str = "pallas",
-                 warm_advect: int = 0):
-    """One batch: frames u8 [B, F, H, W, 3] BGR -> (rgb, flow) f32
-    embeddings, each [K, B, 1024]. ``dtype`` ("float32" or "bfloat16") is
-    the networks' working type; the flow is f32 either way. flow_impl
-    "pallas" solves the plan's pairs on K2 and K3 (with its warm plan, and
-    warm_advect: _pair_flow_uv), "xla" every pair of the clip on the
-    gather-warp solver (the plan's stacks then index flow frames).
+def ensemble_embed(stream: StreamEnsemble, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """[K, N, 1024] embeddings of a stream's K-split ensemble on NHWC x
+    [N, H, W, C]. With a mesh this rank runs only its model shard of the
+    splits (``StreamEnsemble.shard``) and an all-gather over "model"
+    assembles the K in split order, whatever the axis's size: the JAX
+    package's ``_ensemble_embed`` (shard_map, out_specs P(MODEL, DATA)) on
+    this rank's rows."""
+    if mesh is None:
+        return stream.embed(x)
+    local = stream.shard(*model_rank_and_size(mesh)).embed(x)
+    return all_gather_cat(local, mesh.get_group(MODEL_AXIS), dim=0)
 
-    The compact upload (cfg.host_gray, build_payload's layouts): gray_u8 u8
-    [B, F, fh, fw] is the host's gray at the flow grid, and frames_u8 holds
-    only the tick frames [B, T, H, W, 3]; with cfg.host_crop they are
-    already resized and cropped ([B, T, crop, crop, 3]; then native_hw, the
-    (H, W) the gray was computed from, is required), with cfg.host_yuv420
-    packed as I420 [B, T, crop * 3 // 2, crop]. native_hw sets the flow-grid
-    to native-pixel value scale."""
+
+@torch.no_grad()
+def prepare_step(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
+                 warped: bool, tvl1: TVL1Params, dtype: str = "float32",
+                 gray_u8: torch.Tensor | None = None,
+                 native_hw: tuple[int, int] | None = None, flow_impl: str = "pallas",
+                 warm_advect: int = 0, shard: DataShard | None = None):
+    """The first half of extract_step, everything before the networks:
+    gray at the flow grid, the flow, the tick and stack gathers and the
+    preprocess. Returns the networks' NHWC inputs (rgb [B, T, crop, crop,
+    3], flow [B, T, crop, crop, 10]) in ``dtype``."""
     check_flow_impl(flow_impl)
     host_cropped = gray_u8 is not None and cfg.host_crop
     if gray_u8 is not None:
@@ -388,7 +459,8 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
                                        cfg.flow_gray_matmul)
     if flow_impl == "pallas":
         flow_q = _pair_flow(gray, plan.pair_idx, cfg.flow_bound, warped, tvl1, vscale,
-                            plan.warm, cfg.flow_warm_camera, warm_advect)  # [B,P,h,w,2]
+                            plan.warm, cfg.flow_warm_camera, warm_advect,
+                            shard)                                  # [B,P,h,w,2]
     else:
         flow_q = _clip_flow(gray, cfg.flow_bound, warped, tvl1, flow_impl,
                             vscale)                                      # [B,F,h,w,2]
@@ -408,11 +480,53 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
     rgb_in = preprocess_rgb(rgb_ticks, cfg.frame_resize, cfg.crop_size, dtype=dt,
                             precropped=host_cropped)
     flow_in = preprocess_flow(stacks, cfg.frame_resize, cfg.crop_size, dtype=dt)
-    rgb_emb = tsn.rgb.embed(rgb_in.reshape((b * t,) + rgb_in.shape[2:]))
-    flow_emb = tsn.flow.embed(flow_in.reshape((b * t,) + flow_in.shape[2:]))
+    return rgb_in, flow_in
+
+
+@torch.no_grad()
+def embed_step(tsn: TwoStreamTSN, rgb_in: torch.Tensor, flow_in: torch.Tensor,
+               mesh=None):
+    """The second half of extract_step: both streams' ensembles on
+    prepare_step's inputs, ticks averaged -> (rgb, flow) f32 [K, B, 1024]
+    (ensemble_embed: with a mesh, this rank's model shard and the
+    all-gather over "model")."""
+    b, t = rgb_in.shape[:2]
+    rgb_emb = ensemble_embed(tsn.rgb, rgb_in.reshape((b * t,) + rgb_in.shape[2:]), mesh)
+    flow_emb = ensemble_embed(tsn.flow, flow_in.reshape((b * t,) + flow_in.shape[2:]),
+                              mesh)
     k = rgb_emb.shape[0]
     return (rgb_emb.reshape(k, b, t, -1).mean(dim=2),
             flow_emb.reshape(k, b, t, -1).mean(dim=2))
+
+
+@torch.no_grad()
+def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
+                 cfg: ExtractionConfig, warped: bool, tvl1: TVL1Params,
+                 dtype: str = "float32", gray_u8: torch.Tensor | None = None,
+                 native_hw: tuple[int, int] | None = None, flow_impl: str = "pallas",
+                 warm_advect: int = 0, mesh=None, shard: DataShard | None = None):
+    """One batch: frames u8 [B, F, H, W, 3] BGR -> (rgb, flow) f32
+    embeddings, each [K, B, 1024]. ``dtype`` ("float32" or "bfloat16") is
+    the networks' working type; the flow is f32 either way. flow_impl
+    "pallas" solves the plan's pairs on K2 and K3 (with its warm plan, and
+    warm_advect: _pair_flow_uv), "xla" every pair of the clip on the
+    gather-warp solver (the plan's stacks then index flow frames).
+
+    The compact upload (cfg.host_gray, build_payload's layouts): gray_u8 u8
+    [B, F, fh, fw] is the host's gray at the flow grid, and frames_u8 holds
+    only the tick frames [B, T, H, W, 3]; with cfg.host_crop they are
+    already resized and cropped ([B, T, crop, crop, 3]; then native_hw, the
+    (H, W) the gray was computed from, is required), with cfg.host_yuv420
+    packed as I420 [B, T, crop * 3 // 2, crop]. native_hw sets the flow-grid
+    to native-pixel value scale.
+
+    With a mesh, frames_u8 is this rank's data shard (``shard``) and the
+    networks run this rank's model shard; the
+    result is this rank's B clips with all K splits (prepare_step, then
+    embed_step)."""
+    rgb_in, flow_in = prepare_step(frames_u8, plan, cfg, warped, tvl1, dtype, gray_u8,
+                                   native_hw, flow_impl, warm_advect, shard)
+    return embed_step(tsn, rgb_in, flow_in, mesh)
 
 
 @dataclasses.dataclass
@@ -449,11 +563,20 @@ def gather_signatures(sigs: list[ClipSignatures]) -> list[ClipSignatures]:
 class Extractor:
     """Two-stream signature extractor on one device. flow_impl "pallas" (the
     default on every device) solves flow on K2 and K3; "xla" on the
-    gather-warp solver (extract_step)."""
+    gather-warp solver (extract_step).
+
+    With a mesh (a (data, model) DeviceMesh of the initialized world, on
+    this device's type: ``core.meshes.make_mesh``), every rank runs the
+    same calls on the same videos: clip batches split over "data", each
+    stream's splits over "model" (which must divide them: ValueError
+    otherwise, as the JAX package's shard_map cannot split them either),
+    and every rank gets the whole batch's signatures. The JAX package's
+    ``Extractor(mesh=...)``; unlike it, a batch shorter than the data axis
+    (a tail clip) runs, padded with its last clip (ROADMAP §3)."""
 
     def __init__(self, tsn: TwoStreamTSN, cfg: ExtractionConfig | None = None,
                  warped: bool = True, tvl1: TVL1Params | None = None, device=None,
-                 dtype: str = "float32", flow_impl: str = "pallas"):
+                 dtype: str = "float32", flow_impl: str = "pallas", mesh=None):
         self.cfg = cfg or ExtractionConfig()
         self.tvl1 = tvl1 or PRODUCTION_TVL1
         if dtype not in DTYPES:
@@ -476,12 +599,31 @@ class Extractor:
             raise ValueError(f"feature_blob must be 'global_pool'; got "
                              f"{self.cfg.feature_blob!r}")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._data = (None, 0, 1)            # (group, rank, size) of "data"
+        self._model = (0, 1)                 # (rank, size) of "model"
+        local = tsn
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"mesh on {mesh.device_type}, extractor on {self.device}")
+            rank, size = data_rank_and_size(mesh)
+            self._data = (mesh.get_group(DATA_AXIS), rank, size)
+            self._model = model_rank_and_size(mesh)
+            # only this rank's model shard of each stream runs here
+            # (StreamEnsemble.shard raises unless the axis divides K)
+            local = TwoStreamTSN(tsn.rgb.shard(*self._model), tsn.flow.shard(*self._model))
         disable_tf32()
-        for net in tsn.rgb.nets + tsn.flow.nets:
+        for net in local.rgb.nets + local.flow.nets:
             net.to(self.device)
         self.tsn = tsn
         self.warped = warped
         self._plans: dict[int, StepPlan] = {}
+
+    @property
+    def writes_output(self) -> bool:
+        """Whether this rank writes CSVs: the one at data and model
+        coordinate 0, or the only one."""
+        return self._data[1] == 0 and self._model[0] == 0
 
     def _plan(self, f_len: int) -> StepPlan:
         """Index arrays for a clip length, on the device, cached."""
@@ -503,14 +645,27 @@ class Extractor:
         """The device half of a batch: upload a host-built payload and run
         extract_step on it. Payloads come from extract_frames, from this
         process's decode thread (extract_video_stream) or from decode worker
-        processes (pipeline/mpstream.py)."""
-        frames_dev = torch.from_numpy(payload.clip_rgb).to(self.device)
-        gray_dev = (None if payload.gray is None
-                    else torch.from_numpy(payload.gray).to(self.device))
+        processes (pipeline/mpstream.py). With a mesh only this rank's
+        clips go up, and the whole batch's signatures come back by an
+        all-gather over "data", whatever the axis's size."""
+        clip_rgb, gray = payload.clip_rgb, payload.gray
+        shard = None
+        if self.mesh is not None:
+            shard = DataShard.of(*self._data, len(payload.nums))
+            if shard.size > 1:         # with one rank take() is every row
+                rows = shard.take()
+                clip_rgb = clip_rgb[rows]
+                gray = None if gray is None else gray[rows]
+        frames_dev = torch.from_numpy(clip_rgb).to(self.device)
+        gray_dev = None if gray is None else torch.from_numpy(gray).to(self.device)
         rgb, flow = extract_step(self.tsn, frames_dev, self._plan(payload.f_len),
                                  self.cfg, self.warped, self.tvl1, self.dtype,
                                  gray_u8=gray_dev, native_hw=payload.native_hw,
-                                 flow_impl=self.flow_impl)
+                                 flow_impl=self.flow_impl, mesh=self.mesh, shard=shard)
+        if shard is not None:
+            b = shard.total_rows
+            rgb = all_gather_cat(rgb, shard.group, dim=1)[:, :b]
+            flow = all_gather_cat(flow, shard.group, dim=1)[:, :b]
         return ClipSignatures(payload.nums, rgb, flow, self.tsn.rgb.splits)
 
     def extract_video_stream(self, path: str,
@@ -578,8 +733,10 @@ class Extractor:
                        modelname_fmt: str = "UCF101_split{split}",
                        weights_uri_fmt: str = "ucf101_split{split}_tsn_{stream}_bn_inception.npz",
                        ) -> list[str]:
-        """One CSV per (split, stream) under <out>/<video>/<modelname>/."""
-        if not signatures:
+        """One CSV per (split, stream) under <out>/<video>/<modelname>/.
+        With a mesh only the rank at data and model coordinate 0 writes (the
+        others return [])."""
+        if not signatures or not self.writes_output:
             return []
         signatures = gather_signatures(signatures)
         paths = []

@@ -122,6 +122,26 @@ class SimilarityTable:
         self.avg_sim = avg_sim  # f32[S, Npad] (f64 in exact mode)
         self.counts = counts    # i32[S, Npad]
 
+    def valid_positions(self) -> np.ndarray:
+        """Index positions of the clips with every stream present."""
+        n = self.index.n_clips
+        return np.flatnonzero((self.counts[:, :n] > 0).all(axis=0))
+
+    def similarities_dict(self) -> dict[int, dict[str, list]]:
+        """The reference's similarity structure
+        {clip: {stream: [avg_sim, n_ensemble]}} (ticket.py:124), in
+        ascending clip-id order."""
+        out: dict[int, dict[str, list]] = {}
+        for pos in range(self.index.n_clips):
+            entry = {}
+            for si, stream in enumerate(self.index.streams):
+                c = int(self.counts[si, pos])
+                if c > 0:
+                    entry[stream] = [float(self.avg_sim[si, pos]), c]
+            if entry:
+                out[int(self.index.clip_ids[pos])] = entry
+        return out
+
     def scores(self, weights: Mapping[str, float]) -> dict[int, float]:
         """{clip_id: score} for every clip with all streams present, ascending
         clip id (ticket.py:165-180 + the determinism contract), computed on

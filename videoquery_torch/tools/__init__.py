@@ -1,2 +1,5 @@
-"""Counterparts of the JAX package's kernel tools (the fused Inception
-block A/B and the dynamic-roll reproduction). Imports nothing eagerly."""
+"""Counterparts of the JAX package's tools: the fused Inception block A/B
+and the dynamic-roll reproduction (the tool kernels), the flow-quality
+gate, and the extraction measurement tools (flow_bench, warm_stages,
+extract_stages, pipeline_overlap, tick_sweep, parity_embeddings,
+scaling_curve). Imports nothing eagerly."""
