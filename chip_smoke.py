@@ -166,7 +166,33 @@ Phases, each printing its own lines; any failure exits non-zero:
             splits, in a spawned world of one rank, which counts its own
             launches); the bf16 tools must launch T1; 3 reps each where the
             tools default to 8-10. A JSON line {"sharded_extract": ...,
-            "tools": ...} before the card's line.
+            "tools": ...} before the card's line. Last, the roofline tool
+            (videoquery_torch.tools.cnn_roofline --images 200 --splits 3
+            --reps 3), bf16 then f32: the card's HBM read, GEMM and
+            conv-shape GEMM rates, the ensemble forward against its FLOP and
+            byte model; T1's launches counted around each run, and the bf16
+            forward must launch T1.
+15. installed  the port as an operator installs it: the wheel built from a
+            temporary copy of pyproject.toml, videoquery/ and
+            videoquery_torch/, installed into a fresh venv (this
+            interpreter's site-packages, for torch, through a .pth after the
+            venv's own), its site-packages made read-only; every child runs
+            with -B, HOME and XDG_CACHE_HOME in a temporary directory, and an
+            import blocker that refuses jax and the JAX package. Then python
+            -m videoquery_torch.kernels._build with
+            VIDEOQUERY_TORCH_BUILD_DIR=<tmp>/kernels builds the five
+            libraries there; the installed broker round (phase 4's: the
+            fixture CSVs, seed 42, new -> revise -> finalize on cuda:0) on
+            them compiles nothing (its build log is empty), adds no file to
+            that directory, loads K1's library from it, and writes query
+            results and match rows equal to phase 4's exactly; the installed
+            extraction CLI in bf16 on phase 8's video cut to 2 clips, with no
+            build directory set, builds into the user cache
+            (<home>/.cache/videoquery_torch/kernels), launches K2, K3 and T1,
+            and writes CSVs byte-equal to the checkout's CLI's on the same
+            video and arguments; nothing is written under site-packages. A
+            JSON line {"installed": ..., "roofline": ...} before the card's
+            line.
 
 Beside each kernel's time the kernels line gives its bound on an H100 SXM
 (the larger of its compulsory bytes over 3.35 TB/s and its operations over
@@ -181,6 +207,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import random
@@ -189,6 +216,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import textwrap
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -455,8 +483,23 @@ def run_fixture_lifecycle(device, exact: bool, report_dir: str, root: str = FIXT
     return states, rounds, api, query["id"], n_rows
 
 
-def phase_broker(dev) -> int:
-    """The main path on the card; returns K1 launches made by it."""
+def round_rows(api, qid) -> str:
+    """A query's results and their match rows, as JSON (the installed round
+    is held to phase 4's with it)."""
+    import json
+
+    results = sorted((r for r in api.query_results.values() if r["query"] == qid),
+                     key=lambda r: r["id"])
+    ids = {r["id"] for r in results}
+    matches = sorted((m for m in api.matches.values() if m["query_result"] in ids),
+                     key=lambda m: m["id"])
+    return json.dumps({"query_results": results, "matches": matches}, sort_keys=True,
+                      default=str)
+
+
+def phase_broker(dev) -> tuple[int, str]:
+    """The main path on the card; returns K1 launches made by it and the
+    round's rows (round_rows)."""
     from videoquery_torch.kernels import query as k1
 
     with tempfile.TemporaryDirectory() as tmp_exact, \
@@ -480,7 +523,7 @@ def phase_broker(dev) -> int:
     assert rounds == want_rounds and states == want_states, (
         f"device f32 rounds {rounds} != exact f64 rounds {want_rounds}")
     log("[broker] each device round selects the same clips as the exact f64 path")
-    return launches
+    return launches, round_rows(api, qid)
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -1950,6 +1993,185 @@ def phase_tools(dev) -> dict:
     return out
 
 
+def phase_roofline(dev) -> dict:
+    """videoquery_torch.tools.cnn_roofline at production geometry, bf16
+    then f32, with T1's launches counted around each run: the bf16 forward
+    must launch T1."""
+    from videoquery_torch.kernels import inception_block as t1
+    from videoquery_torch.tools import cnn_roofline
+
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        argv = ["--images", "200", "--splits", "3", "--reps", "3", "--dtype", dtype,
+                "--device", str(dev)]
+        log(f"[roofline] python -m videoquery_torch.tools.cnn_roofline {' '.join(argv)}")
+        t1.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = cnn_roofline.run(argv)
+        res["seconds"] = time.perf_counter() - t0
+        res["t1_launches"] = t1.LAUNCHES
+        log(f"[roofline] {dtype}: {res['seconds']:.1f} s, T1 launches {t1.LAUNCHES}")
+        for stream in res["streams"].values():
+            assert stream["ms"] > 0 and all(
+                v > 0 for b in (stream["bounds_measured"], stream["bounds_nominal"])
+                for v in b.values()), stream
+        if dtype == "bfloat16" and not t1.LAUNCHES:
+            raise AssertionError("cnn_roofline's bf16 forward launched no T1")
+        out[dtype] = res
+    return out
+
+
+# -- phase 15 -----------------------------------------------------------------
+
+def run_installed(py: str, code: str, env: dict, cwd: str, timeout: int, what: str) -> str:
+    """code in the venv after the import blocker (installed.BLOCKER), with
+    -B; its stdout. Fails on a non-zero exit."""
+    from videoquery_torch.testing.installed import BLOCKER
+
+    t0 = time.perf_counter()
+    r = subprocess.run([py, "-B", "-c", BLOCKER + code], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"{what} exited {r.returncode}:\n{r.stdout[-4000:]}\n"
+                             f"{r.stderr[-6000:]}")
+    log(f"[installed] {what}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return r.stdout
+
+
+def last_json_line(out: str) -> dict:
+    return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+
+def phase_installed(broker_rows: str) -> dict:
+    """The port as an operator installs it: the wheel in a read-only venv,
+    its kernels prebuilt into $VIDEOQUERY_TORCH_BUILD_DIR, the installed
+    broker round on them (no nvcc, no new file, phase 4's rows exactly, K1
+    loaded from there), then the installed bf16 extraction CLI building
+    into the user cache, its CSVs byte-equal to the checkout's CLI's."""
+    from videoquery_torch.kernels import _build
+    from videoquery_torch.testing.installed import file_tree, install, make_writable
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        py, site, _wheel = install(REPO, tmp)
+        out["install_s"] = time.perf_counter() - t0
+        log(f"[installed] wheel built from a copy and installed into a fresh venv in "
+            f"{out['install_s']:.1f} s; site-packages {site} made read-only")
+        site_files = file_tree(site)
+        home = os.path.join(tmp, "home")
+        work = os.path.join(tmp, "work")
+        os.makedirs(home)
+        os.makedirs(work)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PYTHONPATH", "VIDEOQUERY_TORCH_BUILD_DIR", "VIDEOQUERY_DEVICE")}
+        env.update(HOME=home, XDG_CACHE_HOME=os.path.join(home, ".cache"),
+                   PYTHONDONTWRITEBYTECODE="1")
+        kernels = os.path.join(tmp, "kernels")
+        prebuilt_env = dict(env, VIDEOQUERY_TORCH_BUILD_DIR=kernels)
+
+        # the prebuild command, as a deploy image runs it
+        t0 = time.perf_counter()
+        text = run_installed(py, "import runpy\nrunpy.run_module("
+                                 "'videoquery_torch.kernels._build', run_name='__main__')\n",
+                             prebuilt_env, work, 600, "python -m videoquery_torch.kernels._build")
+        out["prebuild_s"] = time.perf_counter() - t0
+        for line in text.strip().splitlines():
+            log(f"[installed]   {line}")
+        built = sorted(f for f in os.listdir(kernels) if f.endswith(".so"))
+        assert len(built) == 5 and text.count("(built)") == 5, text
+        kernel_files = file_tree(kernels)
+
+        # the installed broker round on the prebuilt kernels: phase 4's round
+        code = (f"FIXTURES = {FIXTURES!r}\n" + inspect.getsource(run_fixture_lifecycle)
+                + inspect.getsource(round_rows) + textwrap.dedent("""
+            import json, tempfile
+            import videoquery_torch
+            from videoquery_torch.kernels import _build, query as k1
+            k1.LAUNCHES = 0
+            with tempfile.TemporaryDirectory() as reports:
+                states, rounds, api, qid, n_rows = run_fixture_lifecycle(
+                    "cuda:0", exact=False, report_dir=reports)
+            with open("/proc/self/maps") as f:
+                loaded = sorted({ln.split()[-1] for ln in f if ln.rstrip().endswith(".so")})
+            print("loaded libraries:", json.dumps(loaded))
+            print(json.dumps({"file": videoquery_torch.__file__,
+                              "build_dir": _build.build_dir(), "states": states,
+                              "k1_launches": k1.LAUNCHES, "nvcc_ran": sorted(_build.BUILD_LOG),
+                              "loaded": loaded, "rows": round_rows(api, qid)}))
+        """))
+        res = last_json_line(run_installed(py, code, prebuilt_env, work, 600,
+                                           "the installed broker round on cuda:0"))
+        k1_lib = os.path.join(kernels, os.path.basename(_build.library_path("query_kernel.cu")))
+        log(f"[installed] broker round: package {res['file']}, build directory "
+            f"{res['build_dir']}, states {res['states']}, K1 launches {res['k1_launches']}, "
+            f"nvcc ran on {res['nvcc_ran']}, kernel libraries loaded "
+            f"{[p for p in res['loaded'] if p.startswith(kernels)]}")
+        assert res["file"].startswith(site), res["file"]
+        assert res["build_dir"] == kernels, res["build_dir"]
+        assert res["nvcc_ran"] == [], f"the installed broker compiled {res['nvcc_ran']}"
+        assert file_tree(kernels) == kernel_files, "a file appeared in the prebuilt directory"
+        assert k1_lib in res["loaded"], f"K1's prebuilt library {k1_lib} was not loaded"
+        assert res["states"] == [4, 4, 7] and res["k1_launches"] > 0, res
+        assert res["rows"] == broker_rows, "the installed round differs from phase 4's"
+        log("[installed] its query results and match rows equal phase 4's in-repo round "
+            "exactly")
+        out["broker"] = {k: res[k] for k in ("states", "k1_launches", "nvcc_ran")}
+
+        # the installed bf16 CLI, no build directory set: the user cache
+        video = os.path.join(tmp, "two_clips.mp4")
+        write_synthetic_video(video, 2 * 150)
+        argv = [video, "--out", None, "--seed", "0", "--dtype", "bfloat16"]
+        code = textwrap.dedent(f"""
+            import json, runpy, sys
+            sys.argv = ["extract"] + {argv[:2] + [os.path.join(work, "installed")] + argv[3:]!r}
+            runpy.run_module("videoquery_torch.pipeline.extract", run_name="__main__")
+            from videoquery_torch.kernels import _build
+            from videoquery_torch.kernels import inception_block as t1
+            from videoquery_torch.kernels import tvl1_level as k2, window_warp as k3
+            print(json.dumps({{"build_dir": _build.build_dir(), "built": sorted(_build.BUILD_LOG),
+                              "launches": {{"K2": k2.LAUNCHES, "K3": k3.LAUNCHES,
+                                           "T1": t1.LAUNCHES}}}}))
+        """)
+        t0 = time.perf_counter()
+        res = last_json_line(run_installed(py, code, env, work, 900,
+                                           "the installed extraction CLI, bf16, on cuda:0"))
+        out["cli_s"] = time.perf_counter() - t0
+        cache = os.path.join(home, ".cache", "videoquery_torch", "kernels")
+        log(f"[installed] CLI: build directory {res['build_dir']}, built {res['built']}, "
+            f"launches {res['launches']}")
+        assert res["build_dir"] == cache, res["build_dir"]
+        assert {"tvl1_level.cu", "window_warp.cu", "inception_block.cu"} <= set(res["built"])
+        assert all(os.path.exists(os.path.join(cache, os.path.basename(
+            _build.library_path(s)))) for s in res["built"])
+        for name, n in res["launches"].items():
+            assert n > 0, f"the installed CLI never launched {name}"
+        # the checkout's CLI on the same video and arguments, in a process of its own
+        repo_out = os.path.join(work, "checkout")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "videoquery_torch.pipeline.extract", video,
+                            "--out", repo_out, *argv[3:]], cwd=REPO,
+                           env={k: v for k, v in os.environ.items()
+                                if k not in ("PYTHONPATH", "VIDEOQUERY_TORCH_BUILD_DIR",
+                                             "VIDEOQUERY_DEVICE")},
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            raise AssertionError(f"the checkout's CLI exited {r.returncode}:\n{r.stderr[-6000:]}")
+        out["checkout_cli_s"] = time.perf_counter() - t0
+        got, want = csv_tree(os.path.join(work, "installed")), csv_tree(repo_out)
+        assert len(got) == 6 and got.keys() == want.keys(), (sorted(got), sorted(want))
+        differ = sorted(k for k in got if got[k] != want[k])
+        assert not differ, f"the installed CLI's CSVs differ from the checkout's: {differ}"
+        log(f"[installed] CLI {out['cli_s']:.1f} s (with its build), checkout CLI "
+            f"{out['checkout_cli_s']:.1f} s: {len(got)} CSVs byte-equal")
+        assert file_tree(site) == site_files, sorted(file_tree(site) ^ site_files)
+        log("[installed] nothing was written under the venv's site-packages")
+        out["cli"] = {"launches": res["launches"], "built": res["built"],
+                      "csvs_byte_equal": len(got)}
+        make_writable(site)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1990,7 +2212,7 @@ def main() -> int:
 
     cuda_tests = phase_cuda_tests()
     max_err = phase_k1(dev)
-    launches = phase_broker(dev)
+    launches, broker_rows = phase_broker(dev)
     rounds = phase_rounds(dev)
     query = phase_query(dev)
     warp = phase_k3(dev)
@@ -2012,11 +2234,14 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
     tools = phase_tools(dev)
+    roofline = phase_roofline(dev)
+    installed = phase_installed(broker_rows)
 
     print(json.dumps({"ingest": ingest}))
     print(json.dumps({"flow_quality": quality}))
     print(json.dumps({"scale_out": sharded, "train": train}))
     print(json.dumps({"sharded_extract": sharded_extract, "tools": tools}))
+    print(json.dumps({"installed": installed, "roofline": roofline}))
     log(card_line())  # the card and its power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "K1 fused query scoring (avg+counts and scores epilogues)",
@@ -2042,6 +2267,7 @@ def main() -> int:
         "sharded_direct_ms": sharded["direct_ms"],
         "sharded_direct_again_ms": sharded["direct_again_ms"],
         "max_abs_err_sharded": sharded["err"],
+        "launches_installed_broker": installed["broker"]["k1_launches"],
     }, {
         "name": "K2 TV-L1 pyramid level (clamp, window warp, linearise, primal-dual)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
@@ -2061,6 +2287,7 @@ def main() -> int:
         "flow_quality_checked": quality["checked"]["K2"]["cases"],
         "launches_sharded_extract": {d: r["launches"]["K2"] for d, r in sharded_extract.items()},
         "launches_tools": {t: r["launches"]["K2"] for t, r in tools.items()},
+        "launches_installed_cli": installed["cli"]["launches"]["K2"],
     }, {
         "name": "K3 window warp (separable and full)",
         "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
@@ -2079,6 +2306,7 @@ def main() -> int:
         "flow_quality_checked": quality["checked"]["K3"]["cases"],
         "launches_sharded_extract": {d: r["launches"]["K3"] for d, r in sharded_extract.items()},
         "launches_tools": {t: r["launches"]["K3"] for t, r in tools.items()},
+        "launches_installed_cli": installed["cli"]["launches"]["K3"],
     }, {
         "name": "T1 fused stride-1 Inception block (bf16: an x-tile and two 3x3 wgmma "
                 "implicit-GEMM launches per call)",
@@ -2109,6 +2337,8 @@ def main() -> int:
         "launches_ingest_path": ingest["launches"]["T1"],
         "launches_sharded_extract_bf16": sharded_extract["bfloat16"]["launches"]["T1"],
         "launches_tools": {t: r["launches"]["T1"] for t, r in tools.items()},
+        "launches_installed_cli": installed["cli"]["launches"]["T1"],
+        "launches_roofline_bf16": roofline["bfloat16"]["t1_launches"],
     }, {
         "name": "T2 roll by a shift read from device memory",
         "route": "cuda", "source": T2_SOURCE, "replaces": T2_REPLACES,

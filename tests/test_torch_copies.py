@@ -1,7 +1,10 @@
 """The port's copies of the JAX package's jax-free modules against the
 originals: ``pipeline/sampling.py``, ``pipeline/decode.py``,
-``testing/{fake_api,serve_fake_api,mp_stubs}.py``, ``nn/prototxt.py``, and
-``testing/caffe_wire.py`` (the caffemodel writer of tests/test_nn.py).
+``testing/{fake_api,serve_fake_api,mp_stubs}.py``, ``nn/prototxt.py``,
+``testing/caffe_wire.py`` (the caffemodel writer of tests/test_nn.py), and
+the verbatim copies ``index/csvio.py``, ``search/{selection,target}.py``
+and ``service/{client,lease,repository}.py`` (their functions, classes and
+constants).
 
 The port imports nothing of the JAX package, so it carries these copies; a
 copy that drifts from its original is caught here. Equality is exact: the
@@ -13,6 +16,7 @@ import ast
 import inspect
 import json
 import os
+import textwrap
 import threading
 import urllib.error
 import urllib.request
@@ -24,14 +28,23 @@ import torch
 from conftest import REFERENCE_FIXTURES
 import test_nn
 from test_torch_prototxt import TINY
+from videoquery.index import csvio as jcsvio
 from videoquery.nn import prototxt as jprototxt
 from videoquery.pipeline import decode as jdecode
 from videoquery.pipeline import sampling as jsampling
+from videoquery.search import selection as jselection
+from videoquery.search import target as jtarget
+from videoquery.service import client as jclient
+from videoquery.service import lease as jlease
+from videoquery.service import repository as jrepository
 from videoquery.testing import fake_api as jfake
 from videoquery.testing import mp_stubs as jstubs
 from videoquery_torch.core.config import HyperParams
+from videoquery_torch.index import csvio
 from videoquery_torch.nn import prototxt
 from videoquery_torch.pipeline import decode, sampling
+from videoquery_torch.search import selection, target
+from videoquery_torch.service import client, lease, repository
 from videoquery_torch.service.compute_matches import compute_matches
 from videoquery_torch.service.loader import DBLoader
 from videoquery_torch.service.repository import APIRepository
@@ -83,24 +96,75 @@ def test_decode_copy_equals_original(tmp_path):
         decode.load_video(str(tmp_path / "missing.mp4"))
 
 
-def code_of(fn) -> str:
-    """A function's syntax tree without its docstring."""
-    node = ast.parse(inspect.getsource(fn)).body[0]
+def code_of(obj, ported: bool = False) -> str:
+    """A function's or a class's syntax tree without its docstring (a
+    class's without its methods' docstrings too). ``ported``: the JAX
+    package's imports read as the port's (``videoquery.x`` as
+    ``videoquery_torch.x``), as its copies import their siblings."""
+    node = ast.parse(textwrap.dedent(inspect.getsource(obj))).body[0]
+    if ported:
+        for imp in ast.walk(node):
+            if isinstance(imp, ast.ImportFrom) and imp.module and \
+                    imp.module.split(".")[0] == "videoquery":
+                imp.module = "videoquery_torch" + imp.module[len("videoquery"):]
     if ast.get_docstring(node) is not None:
         node.body = node.body[1:]
+    if isinstance(node, ast.ClassDef):
+        for member in node.body:
+            if isinstance(member, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and ast.get_docstring(member) is not None:
+                member.body = member.body[1:]
     return ast.dump(node)
 
 
+def defined_in(module, kind) -> list[str]:
+    """The names of `module`'s functions or classes (inspect.isfunction /
+    isclass) defined in the module itself."""
+    return [n for n, f in vars(module).items()
+            if kind(f) and f.__module__ == module.__name__]
+
+
+VERBATIM = [(csvio, jcsvio), (selection, jselection), (target, jtarget),
+            (client, jclient), (lease, jlease), (repository, jrepository)]
+
+
 @pytest.mark.parametrize("copy,original", [(decode, jdecode), (mp_stubs, jstubs),
-                                           (prototxt, jprototxt)])
+                                           (prototxt, jprototxt)] + VERBATIM)
 def test_copied_functions_have_the_original_code(copy, original):
-    """Every function of decode.py, mp_stubs.py and prototxt.py is in the
-    copy with the same code (docstrings aside)."""
-    names = [n for n, f in vars(original).items()
-             if inspect.isfunction(f) and f.__module__ == original.__name__]
+    """Every function of decode.py, mp_stubs.py, prototxt.py and the six
+    verbatim copies is in the copy with the same code (docstrings aside)."""
+    names = defined_in(original, inspect.isfunction)
+    assert names or original is jrepository   # repository.py is one class
+    for name in names:
+        assert code_of(getattr(copy, name)) == \
+            code_of(getattr(original, name), ported=True), name
+
+
+@pytest.mark.parametrize("copy,original",
+                         [c for c in VERBATIM if defined_in(c[1], inspect.isclass)])
+def test_copied_classes_have_the_original_code(copy, original):
+    """Every class of the verbatim copies (FeatureCSV, TargetEstimator,
+    Transport, HTTPTransport, ActionClient, LeaseRecovery, APIRepository)
+    is in the copy with the same body: its fields and every method's code
+    (docstrings aside)."""
+    names = defined_in(original, inspect.isclass)
     assert names
     for name in names:
-        assert code_of(getattr(copy, name)) == code_of(getattr(original, name)), name
+        assert code_of(getattr(copy, name)) == \
+            code_of(getattr(original, name), ported=True), name
+
+
+@pytest.mark.parametrize("copy,original", VERBATIM)
+def test_copied_constants_have_the_original_values(copy, original):
+    """The module-level constants of the verbatim copies: the same values
+    (a pattern by its source)."""
+    names = [n for n, v in vars(original).items()
+             if n.isupper() or (n.startswith("_") and n.lstrip("_").isupper())]
+    for name in names:
+        a, b = getattr(copy, name), getattr(original, name)
+        if hasattr(b, "pattern"):
+            a, b = a.pattern, b.pattern
+        assert a == b, name
 
 
 def test_decode_helpers_copy_equals_original(tmp_path, monkeypatch):

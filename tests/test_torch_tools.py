@@ -10,7 +10,10 @@ returns, prints every row and its final JSON line. Beyond that:
   batch over two distinct frame sets (the tool raises otherwise);
 - parity_embeddings' ``compare_trees`` gives the JAX tool's worst cosine
   on the same two CSV trees, and its ``--selftest`` passes;
-- scaling_curve spawns Gloo worlds of 1 and 2 ranks.
+- scaling_curve spawns Gloo worlds of 1 and 2 ranks;
+- cnn_roofline's cost model equals the JAX tool's row for row but the stem
+  (the port's plain 7x7/s2 conv, counted here independently), and its
+  ceilings' code runs at a tiny size.
 """
 
 import json
@@ -183,3 +186,51 @@ def test_scaling_curve_spawns_gloo_worlds(capsys):
             assert r[key] > 0
     assert out["rows"][0]["speedup_vs_1"] == 1.0
     assert any("t(1)/t(2)" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("n", [200, 7])
+@pytest.mark.parametrize("c", [3, 10])
+def test_cnn_roofline_model_equals_the_jax_tools_but_the_stem(n, c):
+    from tools import cnn_roofline as jroof
+    from videoquery_torch.tools import cnn_roofline as roof
+
+    ours, theirs = roof.model(n, c), jroof.model(n, c)
+    assert len(ours) == len(theirs)
+    assert ours[1:] == theirs[1:]
+    # the stem: a 7x7 stride-2 conv of n x 224 x 224 x c to 112 x 112 x 64, bf16
+    assert ours[0] == ("conv1/7x7_s2", 2 * n * 112 * 112 * 7 * 7 * c * 64,
+                       n * 224 * 224 * c * 2, n * 112 * 112 * 64 * 2, 7 * 7 * c * 64 * 2)
+    stem = sum(ours[0][2:])
+    jax_stem = sum(theirs[0][2:])
+    assert roof.ideal_bytes(ours) - stem == jroof.ideal_bytes(theirs) - jax_stem
+    # f32: every byte count doubles, the FLOPs stay
+    f32 = roof.model(n, c, nbytes=4)
+    assert [r[1] for r in f32] == [r[1] for r in ours]
+    assert roof.ideal_bytes(f32) == roof.ideal_bytes(ours) * 2 - n * 1024 * 4
+
+
+def test_cnn_roofline_on_the_cpu(capsys):
+    from videoquery_torch.tools import cnn_roofline as roof
+
+    roof.main(["--device", "cpu", "--images", "2", "--splits", "1", "--reps", "1"])
+    lines, res = last_json(capsys, "cnn_roofline")
+    assert res["ceilings"] is None and res["dtype"] == "bfloat16"
+    assert "[ceilings] not measured on cpu" in lines
+    for stream in ("rgb", "flow"):
+        s = res["streams"][stream]
+        assert s["ms"] > 0 and s["bounds_measured"] is None
+        assert s["gflop"] == pytest.approx(sum(v["gflop"] for v in s["blocks"].values()))
+        assert 0 < s["bounds_nominal"]["ideal_ms"] < s["bounds_nominal"]["unfused_ms"]
+        assert s["t1_gflop"] < s["gflop"]
+    assert res["total"]["cnn_clips_s_8clip"] is None      # not 200 images
+
+
+def test_cnn_roofline_ceilings_run_at_a_tiny_size():
+    from videoquery_torch.tools import cnn_roofline as roof
+
+    cpu = torch.device("cpu")
+    assert roof.measure_hbm_read(cpu, gib=1 / 1024, iters=2) > 0
+    assert roof.measure_gemm(cpu, torch.float32, m=64, iters=2) > 0
+    rows = roof.measure_conv_shape_envelope(cpu, torch.bfloat16, images=1, iters=1)
+    assert [r["label"] for r in rows] == [s[0] for s in roof.CONV_SHAPES]
+    assert all(r["flop_s"] > 0 and r["m"] == s[1] for r, s in zip(rows, roof.CONV_SHAPES))

@@ -239,8 +239,8 @@ def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
     warm_advect > 0 advects a warm pair's start: a pair j frames from its
     key samples the key's flow where the content came from, u0(x) =
     u_key(x - j * u_key(x)), one K3 call with window d = warm_advect, which
-    must cover max |j| * the flow (group // 2 * 8 at the production
-    schedule). shard: gray is this rank's data shard (the rescue's
+    must cover max |j| * the flow (group // 2 * max_disp, max_disp = 6 by
+    default, at the production schedule). shard: gray is this rank's data shard (the rescue's
     choice is the whole batch's)."""
     b, f, h, w = gray.shape
     i0 = gray[:, pair_idx]

@@ -2,4 +2,4 @@
 and the dynamic-roll reproduction (the tool kernels), the flow-quality
 gate, and the extraction measurement tools (flow_bench, warm_stages,
 extract_stages, pipeline_overlap, tick_sweep, parity_embeddings,
-scaling_curve). Imports nothing eagerly."""
+scaling_curve, cnn_roofline). Imports nothing eagerly."""

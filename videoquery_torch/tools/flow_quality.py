@@ -534,7 +534,8 @@ def config_table(args, TVL1Params, PRODUCTION_TVL1) -> dict:
         }
     if args.warm:
         # 4th field = warm_group, 5th = warm_camera, 8th = warm_advect
-        # (window size; group//2 * 8 covers the advection displacement);
+        # (window size; group//2 * max_disp, 6 by default, covers the
+        # advection displacement);
         # the gate is warm == cold on EPE (incl. the jitter class) +
         # retrieval
         configs = {
