@@ -480,3 +480,22 @@ def test_sharded_extractor_on_a_nccl_world_of_one(tmp_path, dtype):
         assert np.array_equal(g.flow.view(np.uint32), w.flow.view(np.uint32))
     assert launches[0] > 0 and launches[1] > 0, launches
     assert (launches[2] > 0) == (dtype == "bfloat16"), launches
+
+
+# -- the bench ----------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_bench_query_mode_on_the_card():
+    """The port's bench in query mode at 65,536 segments: its checks pass
+    (each returned id's plain score, the k-th value of the plain top-k), K1
+    launched once a timed call, and its line names the card, not a
+    rehearsal."""
+    needs_card()
+    from videoquery_torch.tools import bench
+
+    out = bench.run(["--mode", "query", "--segments", "65536", "--repeats", "3"])
+    assert out["ok"] and all(out["checks"]["query"].values()), out["checks"]
+    assert out["launches"]["query"]["K1"] == 3
+    assert not out["rehearsal"] and out["device"]["count"] >= 1
+    assert out["device"]["name"] == torch.cuda.get_device_name(0)
+    assert out["metrics"]["query_p50_ms_batch16_65k_segments_n"] == 3

@@ -274,14 +274,15 @@ def test_extractor_refuses_what_is_not_ported():
 
 # the extraction measurement tools ported beside flow_quality
 NEW_TOOLS = ("flow_bench", "warm_stages", "extract_stages", "pipeline_overlap",
-             "tick_sweep", "parity_embeddings", "scaling_curve", "cnn_roofline")
+             "tick_sweep", "parity_embeddings", "scaling_curve", "cnn_roofline", "bench")
 
 
 def test_extraction_imports_without_jax():
     """Importing every module of the port, and the module of the `cuda`
     tests that runs on the card without jax (with its inputs' module
     ``tests/_torch_cases.py``), loads neither jax nor any
-    module of the JAX package (videoquery.*) nor the repository's tools/."""
+    module of the JAX package (videoquery.*) nor the repository's tools/
+    nor its bench.py."""
     code = ("import sys, pkgutil, importlib, importlib.util, videoquery_torch\n"
             "for m in pkgutil.walk_packages(videoquery_torch.__path__, 'videoquery_torch.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -291,7 +292,7 @@ def test_extraction_imports_without_jax():
             "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'videoquery' or m.startswith('videoquery.')\n"
-            "       or m == 'tools' or m.startswith('tools.')]\n"
+            "       or m == 'tools' or m.startswith('tools.') or m == 'bench']\n"
             "assert not bad, bad\n"
             "assert 'videoquery_torch.tools.inception_block_bench' in sys.modules\n"
             "assert 'videoquery_torch.tools.flow_quality' in sys.modules\n"
@@ -330,8 +331,8 @@ def imported_modules(path: str) -> set[str]:
                             "videoquery_torch/kernels/_build.py"])
 def test_port_sources_import_nothing_of_the_jax_package(where):
     """No import statement in chip_smoke.py, any module of the port, the
-    module of the `cuda` tests or its inputs' module names jax, the JAX package (videoquery.*) or
-    the repository's tools/."""
+    module of the `cuda` tests or its inputs' module names jax, the JAX package (videoquery.*),
+    the repository's tools/ or its bench.py."""
     root = os.path.join(REPO, where)
     files = ([root] if root.endswith(".py")
              else glob.glob(os.path.join(root, "**", "*.py"), recursive=True))
@@ -339,4 +340,4 @@ def test_port_sources_import_nothing_of_the_jax_package(where):
     for path in files:
         for mod in imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "videoquery", "tools"), (path, mod)
+            assert top not in ("jax", "jaxlib", "videoquery", "tools", "bench"), (path, mod)
