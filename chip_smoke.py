@@ -204,6 +204,25 @@ Phases, each printing its own lines; any failure exits non-zero:
             the run (counts set to 0 just before it) must launch K1, K2, K3
             and T1. A JSON line {"bench": ...} before the card's line.
 
+17. sharded serving  on phase 12's NCCL world of one rank: the data-sharded
+            serving program, SearchEngine(index, mesh=make_mesh("cuda")), over
+            a 1,000,000-clip bf16 cone world (phase 5b's size, 12.3 GB, seed
+            2; videoquery_torch.testing.sharded_serving: clips fanned out on a
+            cone around one direction, so a round's band holds thousands of clips a
+            query on every quarter of the index) at Q=8: its tables bitwise
+            equal to the unsharded engine's, counts equal; its resident
+            rounds, batched and solo, revise and finalize (the lowest user
+            match on the last quarter of the index, the clip ranked above it
+            on another), equal in keys and f64 bits; optimize_many equal. K1's
+            launches on that path (counts set to 0 just before it). The same
+            index as 4 in-process row shards (each copied, scored by K1 and
+            freed in turn), merged by merge_banded: the same tables, rounds
+            and optimizer results. The p50 of 100 resident rounds (K1, the
+            optimizer, the banded rounds, the selection), sharded and
+            unsharded in turns, and of each of those stages. Then python -m videoquery_torch.tools.dryrun
+            --world 1 --device cuda (its five [dryrun] lines). A JSON line
+            {"sharded_serving": ...} before the card's line.
+
 Beside each kernel's time the kernels line gives its bound on an H100 SXM
 (the larger of its compulsory bytes over 3.35 TB/s and its operations over
 989 TFLOP/s bf16 tensor-core or 67 TFLOP/s f32 peak) and, where one exists,
@@ -1755,6 +1774,156 @@ def phase_sharded(dev, mesh, query: dict, n_segments=1_000_000, q=16, k=20,
             "merge_shards": n_shards, "merge_bitwise": merge_bitwise, "err": max(errs)}
 
 
+# -- phase 17 -----------------------------------------------------------------
+
+def phase_sharded_serving(dev, mesh, n_segments=1_000_000, q=8, n_band=2_000,
+                          n_shards=4, repeats=100) -> dict:
+    """SearchEngine(index, mesh=mesh) on the NCCL world of one rank over a
+    1M-clip bf16 cone world against the unsharded engine; the index as
+    n_shards in-process shards merged; the p50 of a resident round, sharded
+    and unsharded in turns; then the dry run on the card."""
+    import numpy as np
+    import torch
+
+    from videoquery_torch.core.config import HyperParams
+    from videoquery_torch.kernels import query as k1
+    from videoquery_torch.search.engine import (SearchEngine, optimize_many,
+                                                round_scores_many)
+    from videoquery_torch.search.selection import select_clips_to_review
+    from videoquery_torch.testing.sharded_serving import (InProcessShards, band_rounds,
+                                                          cone_world)
+
+    t0 = time.perf_counter()
+    world = cone_world(n_segments, 1024, q, device=dev, seed=2, dtype=torch.bfloat16,
+                       pad_multiple=64)
+    torch.cuda.synchronize()
+    index, targets, hp = world.index, world.targets, HyperParams()
+    log(f"[serving] cone world: {n_segments} clips bf16 [2, 3, {index.n_padded}, 1024] "
+        f"({index.feats.numel() * 2 / 1e9:.1f} GB) made in {time.perf_counter() - t0:.1f} s")
+    unsharded = SearchEngine(index)
+    tables_u = unsharded.compute_similarities_multi(targets)
+    res_u = unsharded.compute_similarities_multi(targets, resident=True)
+    made = [band_rounds(index, t.avg_sim, t.counts, hp.default_weights, n_band, n_shards)
+            for t in tables_u]
+    specs = [m[0] for m in made] + [m[1] for m in made]   # revise, then finalize
+    labels = [m[2] for m in made]
+
+    sharded = SearchEngine(index, mesh=mesh)
+    # a world of one rank: its shard is the index itself, no copy
+    assert sharded.index.feats.data_ptr() == index.feats.data_ptr()
+    k1.LAUNCHES = 0
+    tables_s = sharded.compute_similarities_multi(targets)       # the main path
+    res_s = sharded.compute_similarities_multi(targets, resident=True)
+    fitted_s = optimize_many(res_s, labels, hp)
+    group_s = round_scores_many(res_s + res_s, specs)
+    solo_s = [t.round_scores(**spec) for t, spec in zip(res_s + res_s, specs)]
+    launches = k1.LAUNCHES
+    assert launches >= 2, f"the sharded serving path launched K1 {launches} times"
+
+    errs: list[float] = []
+    bitwise = True
+    for tu, ts in zip(tables_u, tables_s):
+        assert np.array_equal(ts.counts, tu.counts), "sharded counts differ"
+        errs.append(float(np.abs(ts.avg_sim - tu.avg_sim).max()))
+        bitwise &= bool(np.array_equal(ts.avg_sim.view(np.uint32), tu.avg_sim.view(np.uint32)))
+        assert np.allclose(ts.avg_sim, tu.avg_sim, rtol=RTOL, atol=ATOL), (
+            f"sharded table differs by {errs[-1]:.3e}")
+    want_rounds = round_scores_many(res_u + res_u, specs)
+    for g, s_, w in zip(group_s, solo_s, want_rounds):
+        assert w is not None and g == s_ == w, "a sharded round differs from the unsharded one"
+    for (h_s, g_s), (h_u, g_u) in zip(fitted_s, optimize_many(res_u, labels, hp)):
+        assert h_s == h_u and np.array_equal(g_s.losses, g_u.losses), "sharded optimize differs"
+    bands = [len(r) for r in want_rounds]
+    log(f"[serving] SearchEngine(index, mesh) on the NCCL world of 1, Q={q}: tables "
+        f"{'bitwise equal' if bitwise else f'within {max(errs):.3e}'} to the unsharded "
+        f"engine's, counts equal; optimize_many equal; {len(specs)} resident rounds "
+        f"(revise and finalize, batched and solo) equal in keys and f64 bits; band "
+        f"dicts of {min(bands)}-{max(bands)} clips; K1 launches {launches}")
+
+    # n_shards in-process row shards, each copied, scored by K1 and freed,
+    # the rounds merged by merge_banded
+    t0 = time.perf_counter()
+    shards = InProcessShards.from_index(index, targets, n_shards)
+    for qi, tu in enumerate(tables_u):
+        avg, counts = shards.table(qi)
+        assert np.array_equal(counts, tu.counts), f"{n_shards}-shard counts differ"
+        errs.append(float(np.abs(avg - tu.avg_sim).max()))
+        bitwise &= bool(np.array_equal(avg.view(np.uint32), tu.avg_sim.view(np.uint32)))
+        assert np.allclose(avg, tu.avg_sim, rtol=RTOL, atol=ATOL)
+        h_s, g_s = shards.optimize(qi, labels[qi], hp)
+        h_u, g_u = res_u[qi].optimize(labels[qi], hp)
+        assert h_s == h_u and np.array_equal(g_s.losses, g_u.losses)
+    for i, spec in enumerate(specs):
+        assert shards.round_scores(i % q, **spec) == want_rounds[i], (
+            f"the {n_shards}-shard merge differs on round {i}")
+    log(f"[serving] {n_shards} in-process row shards of {index.n_padded // n_shards}, "
+        f"each K1, merged: tables {'bitwise equal' if bitwise else 'within tolerance'}, "
+        f"rounds and optimize equal ({time.perf_counter() - t0:.1f} s)")
+    del shards
+
+    revise = specs[:q]
+    ref = int(index.clip_ids[0])
+
+    def one_round(engine, marks):
+        # host clock after each stage; K1's stage ends in a synchronise, the
+        # others in their own downloads
+        marks.append(time.perf_counter())
+        tables = engine.compute_similarities_multi(targets, resident=True)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        optimize_many(tables, labels, hp)
+        marks.append(time.perf_counter())
+        rounds = round_scores_many(tables, revise)
+        marks.append(time.perf_counter())
+        picks = [select_clips_to_review(sc, {}, ref, spec["threshold"], 20, spec["near_miss"],
+                                        rng=random.Random(42))
+                 for sc, spec in zip(rounds, revise)]
+        marks.append(time.perf_counter())
+        return picks
+
+    assert one_round(sharded, []) == one_round(unsharded, [])
+    stages = ("K1", "optimize_many", "round_scores_many", "selection")
+    times: dict[str, list] = {"sharded": [], "unsharded": []}
+    engines = {"sharded": sharded, "unsharded": unsharded}
+    for i in range(repeats):
+        for name in (("sharded", "unsharded") if i % 2 else ("unsharded", "sharded")):
+            marks: list[float] = []
+            torch.cuda.synchronize()
+            one_round(engines[name], marks)
+            torch.cuda.synchronize()
+            times[name].append(np.diff(marks + [time.perf_counter()]) * 1e3)
+    p50 = {k: statistics.median(float(t.sum()) for t in v) for k, v in times.items()}
+    p50_stage = {k: dict(zip(stages, np.median(np.stack(v), axis=0)[:4].tolist()))
+                 for k, v in times.items()}
+    log(f"[serving] p50 of {repeats} resident rounds of {q} queries (K1, optimize_many, "
+        f"round_scores_many, selection), in turns: sharded {p50['sharded']:.3f} ms, "
+        f"unsharded {p50['unsharded']:.3f} ms ({p50['sharded'] / p50['unsharded']:.3f}x)")
+    for name, by in p50_stage.items():
+        log(f"[serving]   {name} p50 by stage (ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in by.items()))
+    del world, index, unsharded, sharded, tables_u, tables_s, res_u, res_s
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "videoquery_torch.tools.dryrun", "--world", "1",
+                        "--device", "cuda"], cwd=REPO, capture_output=True, text=True,
+                       timeout=600)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("[dryrun]")]
+    for ln in lines:
+        log(f"[serving] {ln}")
+    dry_s = time.perf_counter() - t0
+    assert r.returncode == 0 and len(lines) == 6 and lines[-1].startswith("[dryrun] OK"), (
+        f"the dry run failed (exit {r.returncode}):\n{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    log(f"[serving] python -m videoquery_torch.tools.dryrun --world 1 --device cuda: exit 0 "
+        f"in {dry_s:.1f} s")
+    return {"launches": launches, "round_ms": p50["sharded"],
+            "unsharded_round_ms": p50["unsharded"], "stage_ms": p50_stage,
+            "repeats": repeats, "queries": q,
+            "segments": n_segments, "band_clips": bands, "tables_bitwise": bitwise,
+            "err": max(errs), "in_process_shards": n_shards, "dryrun": lines,
+            "dryrun_s": dry_s}
+
+
 # -- phase 13 -----------------------------------------------------------------
 
 TRAIN_RTOL_LOSS = 1e-5                   # tests/test_distributed.py:87-116
@@ -2283,13 +2452,14 @@ def main() -> int:
     rollp = phase_t2(dev)
     quality = phase_flow_quality()
     with tempfile.TemporaryDirectory() as tmp:
-        # a NCCL world of one rank on this card for phases 12-13
+        # a NCCL world of one rank on this card for phases 12-14 and 17
         initialize_multihost(f"file://{os.path.join(tmp, 'store')}", 1, 0, dev)
         try:
             mesh = make_mesh("cuda")
             sharded = phase_sharded(dev, mesh, query)
             train = phase_train(dev, mesh, tmp)
             sharded_extract = phase_sharded_extract(dev, mesh, tmp)
+            serving = phase_sharded_serving(dev, mesh)
         finally:
             dist.destroy_process_group()
     tools = phase_tools(dev)
@@ -2303,12 +2473,14 @@ def main() -> int:
     print(json.dumps({"sharded_extract": sharded_extract, "tools": tools}))
     print(json.dumps({"installed": installed, "roofline": roofline}))
     print(json.dumps({"bench": bench}))
+    print(json.dumps({"sharded_serving": serving}))
     log(card_line())  # the card and its power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "K1 fused query scoring (avg+counts and scores epilogues)",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches,
-        "max_abs_err": max(max_err, rounds["err"], query["err"], sharded["err"]),
+        "max_abs_err": max(max_err, rounds["err"], query["err"], sharded["err"],
+                           serving["err"]),
         "ms": query["query_ms"], "plain_ms": query["query_plain_ms"],
         "bound_ms": query["bound_ms"], "bound_by": query["bound_by"],
         "library_ms": query["library_ms"],
@@ -2330,6 +2502,10 @@ def main() -> int:
         "max_abs_err_sharded": sharded["err"],
         "launches_installed_broker": installed["broker"]["k1_launches"],
         "launches_bench": bench["launches"]["K1"],
+        "launches_sharded_serving": serving["launches"],
+        "sharded_round_ms_1m_bf16_q8": serving["round_ms"],
+        "unsharded_round_ms_1m_bf16_q8": serving["unsharded_round_ms"],
+        "max_abs_err_sharded_serving": serving["err"],
     }, {
         "name": "K2 TV-L1 pyramid level (clamp, window warp, linearise, primal-dual)",
         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

@@ -499,3 +499,40 @@ def test_bench_query_mode_on_the_card():
     assert not out["rehearsal"] and out["device"]["count"] >= 1
     assert out["device"]["name"] == torch.cuda.get_device_name(0)
     assert out["metrics"]["query_p50_ms_batch16_65k_segments_n"] == 3
+
+
+@pytest.mark.cuda
+def test_k1_shards_merged_equal_the_unsharded_engine():
+    """Four in-process row shards of a bf16 cone world (4,096 clips, D=128,
+    4 queries), each scored by K1 and merged (``InProcessShards``): the
+    unsharded engine's table bit for bit, counts equal, its revise and
+    finalize band dicts equal (keys and f64 bits) and its optimizer's
+    result; K1 launched once a shard."""
+    needs_card()
+    from videoquery_torch.core.config import HyperParams
+    from videoquery_torch.search.engine import SearchEngine
+    from videoquery_torch.testing.sharded_serving import (InProcessShards, band_rounds,
+                                                          cone_world)
+
+    world = cone_world(4096, 128, 4, device="cuda", dtype=torch.bfloat16, pad_multiple=64)
+    engine = SearchEngine(world.index)
+    tables = engine.compute_similarities_multi(world.targets)
+    resident = engine.compute_similarities_multi(world.targets, resident=True)
+    launches = k1.LAUNCHES
+    shards = InProcessShards.from_index(world.index, world.targets, 4)
+    assert k1.LAUNCHES == launches + 4
+    hp = HyperParams()
+    for qi, table in enumerate(tables):
+        avg, counts = shards.table(qi)
+        assert np.array_equal(avg.view(np.uint32), table.avg_sim.view(np.uint32))
+        assert np.array_equal(counts, table.counts)
+        revise, finalize, labels = band_rounds(world.index, table.avg_sim, table.counts,
+                                               hp.default_weights, 200, 4)
+        for spec in (revise, finalize):
+            got = shards.round_scores(qi, **spec)
+            assert got is not None and len(got) > 100
+            assert got == resident[qi].round_scores(**spec)
+        h_got, g_got = shards.optimize(qi, labels, hp)
+        h_want, g_want = resident[qi].optimize(labels, hp)
+        assert h_got == h_want
+        assert np.array_equal(g_got.losses, g_want.losses)

@@ -274,7 +274,8 @@ def test_extractor_refuses_what_is_not_ported():
 
 # the extraction measurement tools ported beside flow_quality
 NEW_TOOLS = ("flow_bench", "warm_stages", "extract_stages", "pipeline_overlap",
-             "tick_sweep", "parity_embeddings", "scaling_curve", "cnn_roofline", "bench")
+             "tick_sweep", "parity_embeddings", "scaling_curve", "cnn_roofline", "bench",
+             "dryrun")
 
 
 def test_extraction_imports_without_jax():
@@ -328,6 +329,7 @@ def imported_modules(path: str) -> set[str]:
                          + ["videoquery_torch/nn/prototxt.py",
                             "videoquery_torch/nn/prototxt_net.py",
                             "videoquery_torch/testing/caffe_wire.py",
+                            "videoquery_torch/testing/sharded_serving.py",
                             "videoquery_torch/kernels/_build.py"])
 def test_port_sources_import_nothing_of_the_jax_package(where):
     """No import statement in chip_smoke.py, any module of the port, the

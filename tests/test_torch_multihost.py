@@ -1,11 +1,14 @@
 """The port's 2-process world (videoquery_torch.testing.multihost_worker).
 
 Two spawned worker processes join one Gloo world through a ``file://``
-store under the test's temporary directory and run the sharded search and
-two DDP train steps whose collectives cross the process boundary. Their
-results must agree with each other exactly, equal the same world run as
-one rank in this process (rtol 1e-5), and give the top-k ids of the JAX
-package's world on conftest's 8 virtual devices.
+store under the test's temporary directory and run the sharded search, two
+DDP train steps and the data-sharded serving program (SearchEngine with a
+mesh: table, resident rounds, optimizer) whose collectives cross the
+process boundary. Their results must agree with each other exactly, equal
+the same world run as one rank in this process (rtol 1e-5; the serving
+program within sharded_serving.CPU_TOL, selections equal), the serving
+program also the unsharded engine, and the top-k ids must be the JAX
+package's world's on conftest's 8 virtual devices.
 """
 
 import json
@@ -19,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from videoquery_torch.core.meshes import initialize_multihost
+from videoquery_torch.testing.sharded_serving import compare_serving
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -70,6 +74,19 @@ def test_workers_agree(worker_results):
     assert r0["topk_vals"] == r1["topk_vals"]
     assert [r0["loss"], r0["accuracy"], r0["loss2"]] == [r1["loss"], r1["accuracy"], r1["loss2"]]
     assert np.isfinite([r0["loss"], r0["loss2"]]).all()
+    assert r0["serving"] == r1["serving"]
+
+
+def test_sharded_serving_equals_the_unsharded_engine(worker_results):
+    """Each rank's sharded table, rounds (batched and solo), optimizer and
+    selections against the unsharded engine in the same process: counts,
+    clip ids and selections equal, the numbers within CPU_TOL (the CPU's
+    plain K1 may sum a 80-row shard in another order than 160 rows)."""
+    for r in worker_results:
+        assert compare_serving(r["serving"], r["serving_unsharded"], exact=False) == []
+        assert all(r["serving"]["rounds"]) and all(r["serving"]["picks"])
+        assert r["serving"]["low_user_match_below_threshold"] == [True]
+        assert r["serving"]["rounds"] == r["serving"]["rounds_solo"]
 
 
 def test_matches_one_rank_in_process(worker_results, tmp_path):
@@ -89,6 +106,9 @@ def test_matches_one_rank_in_process(worker_results, tmp_path):
         np.testing.assert_allclose(r["loss"], ref["loss"], rtol=1e-5)
         np.testing.assert_allclose(r["loss2"], ref["loss2"], rtol=1e-5)
         assert r["accuracy"] == ref["accuracy"]
+        assert compare_serving(r["serving"], ref["serving"], exact=False) == []
+    # a world of one runs the sharded code on a shard that is the whole index
+    assert compare_serving(ref["serving"], ref["serving_unsharded"], exact=True) == []
 
 
 def test_topk_ids_match_the_jax_world(worker_results):

@@ -65,6 +65,14 @@ def make_mesh(device_type: str, model_parallel: int = 1):
                             mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 
+def mesh_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``: the current CUDA device on a "cuda"
+    mesh (which raises without a card), else the mesh's device type."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def data_rank_and_size(mesh) -> tuple[int, int]:
     """This rank's coordinate along the mesh's "data" axis, and its size."""
     return mesh.get_local_rank(DATA_AXIS), mesh.size(mesh.mesh_dim_names.index(DATA_AXIS))

@@ -13,7 +13,7 @@ per index.
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Sequence
+from typing import Iterable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +22,25 @@ from videoquery_torch.core.meshes import pad_to_multiple
 from videoquery_torch.index.records import FeatureRecord
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+class ShardSpec(NamedTuple):
+    """What a shard of an index is: ``rank``'s contiguous share of
+    ``n_local`` positions of the padded clip axis, of ``world`` shares."""
+    rank: int
+    world: int
+    n_local: int
+
+    def locate(self, positions) -> tuple[np.ndarray, np.ndarray]:
+        """Global positions -> (owner rank, position within the owner's
+        shard), int64 arrays of the positions' shape."""
+        return np.divmod(np.asarray(positions, np.int64), self.n_local)
+
+    def local(self, positions) -> tuple[np.ndarray, np.ndarray]:
+        """Global positions -> (position on THIS shard, 0 where another rank
+        owns it; owner rank)."""
+        owner, local = self.locate(positions)
+        return np.where(owner == self.rank, local, 0), owner
 
 
 class FeatureIndex:
@@ -55,6 +74,8 @@ class FeatureIndex:
         # path; set by build(keep_host=True)
         self.host_feats: np.ndarray | None = None
         self.host_mask: np.ndarray | None = None
+        # set by shard(): None for a whole index
+        self.shard_spec: ShardSpec | None = None
 
     # -- construction -------------------------------------------------------
 
@@ -177,6 +198,8 @@ class FeatureIndex:
         return self.feats.device
 
     def position(self, clip_id: int) -> int | None:
+        """The clip's GLOBAL position on the padded clip axis (a shard's
+        too), or None."""
         return self._id_to_pos.get(int(clip_id))
 
     def target_arrays(
@@ -211,18 +234,25 @@ class FeatureIndex:
         """Rank `rank`'s contiguous share of the padded clip axis, of `world`
         equal shares, on `device` (a view when it is already there and
         contiguous, else one copy). The shard keeps the GLOBAL clip_ids on
-        the host, so its ``n_clips`` is the whole index's while its
-        ``n_padded`` is the shard's length; its position p is global
-        position ``rank * n_padded + p``. Raises ValueError unless `world`
-        divides the padded clip axis (build the index with a pad_multiple
-        that is a multiple of the world size)."""
+        the host, so its ``n_clips`` and ``position`` are the whole index's
+        while its ``n_padded`` is the shard's length; ``shard_spec`` records
+        (rank, world, n_local), and its position p is global position
+        ``rank * n_local + p`` (``shard_spec.locate`` maps back). Raises ValueError
+        unless `world` divides the padded clip axis (build the index with a
+        pad_multiple that is a multiple of the world size), or when this
+        index is itself a shard."""
+        if self.shard_spec is not None:
+            raise ValueError(f"this index is already shard {self.shard_spec}; "
+                             "shard the whole index")
         if self.n_padded % world != 0:
             raise ValueError(
                 f"padded clip axis {self.n_padded} not divisible by {world} data "
                 f"shards; build the index with pad_multiple={world} (or a multiple)")
         n_local = self.n_padded // world
         rows = slice(rank * n_local, (rank + 1) * n_local)
-        return FeatureIndex(self.clip_ids,
-                            self.feats[:, :, rows].to(device).contiguous(),
-                            self.mask[:, :, rows].to(device).contiguous(),
-                            self.streams, self.splits, self.feature_name)
+        out = FeatureIndex(self.clip_ids,
+                           self.feats[:, :, rows].to(device).contiguous(),
+                           self.mask[:, :, rows].to(device).contiguous(),
+                           self.streams, self.splits, self.feature_name)
+        out.shard_spec = ShardSpec(rank, world, n_local)
+        return out

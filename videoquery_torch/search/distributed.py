@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from videoquery_torch.core.meshes import DATA_AXIS, data_rank_and_size
+from videoquery_torch.core.meshes import DATA_AXIS, data_rank_and_size, mesh_device
 from videoquery_torch.core.transfer import put_tree
 from videoquery_torch.index.store import FeatureIndex
 from videoquery_torch.kernels.query import fused_query_scores
@@ -83,12 +83,8 @@ class ShardedSearch:
         self.impl = impl
         self.rank, self.n_shards = data_rank_and_size(mesh)
         self.group = mesh.get_group(DATA_AXIS)
-        if mesh.device_type == "cuda":
-            device = torch.device("cuda", torch.cuda.current_device())
-        else:
-            device = torch.device(mesh.device_type)
         # raises ValueError unless n_shards divides the padded clip axis
-        self.index = index.shard(self.rank, self.n_shards, device)
+        self.index = index.shard(self.rank, self.n_shards, mesh_device(mesh))
         self.n_clips = index.n_clips
 
     @property

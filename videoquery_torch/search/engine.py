@@ -15,6 +15,16 @@ Two round flavors:
   + kept clips). Selection results are IDENTICAL to the full path: the
   device band is widened by a margin exceeding any f32-vs-f64 score
   discrepancy and select_clips_to_review re-applies the exact float64 band.
+
+With a mesh (``SearchEngine(index, mesh=mesh)``) the index is split over
+the mesh's "data" axis (``FeatureIndex.shard``) and each rank runs K1 on
+its own shard. Every rank then holds the unsharded engine's results, bit
+for bit where K1's per-clip sums do not depend on the shard's length (on
+the card): a table is all-gathered; a reviewed or kept clip is read on the
+rank that owns it and assembled by all-gather and selection (a sum of
+zeros would lose -0.0); finalize's lowest user match is an all-reduce MIN;
+each rank's banded candidates are all-gathered and merged in rank order
+(``merge_banded``), so the cap counts the whole band on every rank.
 """
 
 from __future__ import annotations
@@ -23,9 +33,12 @@ from typing import Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from videoquery_torch.core.config import HyperParams, compute_eps
-from videoquery_torch.index.store import FeatureIndex
+from videoquery_torch.core.meshes import (DATA_AXIS, all_gather_cat,
+                                          data_rank_and_size, mesh_device)
+from videoquery_torch.index.store import FeatureIndex, ShardSpec
 from videoquery_torch.search.optimizer import GridResult, optimize_weights
 from videoquery_torch.search.scoring import (ensemble_similarities_batched,
                                              scores_from_similarities)
@@ -41,21 +54,21 @@ _CAPS = (32_768, 262_144)
 
 
 def _banded_core(avg, counts, weights, threshold, near_miss, eps,
-                 keep_pos, um_pos, um_mask, cap: int, finalize: bool):
+                 keep_pos, low, cap: int):
     """Everything selection needs, for B queries at once, as one f32 tensor
     [B, L] (one download).
 
     avg f32[B, S, N], counts i32[B, S, N], weights f32[B, S], threshold and
-    near_miss f32[B], eps a float, keep_pos i64[B, KP], um_pos i64[B, UM],
-    um_mask bool[B, UM].
+    near_miss f32[B], eps a float, keep_pos i64[B, KP], low None or f32[B].
 
     Row layout: candidates [S+2, cap] (avg rows, valid bit, position as an
     exact-in-f32 integer, -1 past the band), kept clips [S+1, KP] (avg rows,
     valid bit), then [n_in_band]. The in-band positions are scattered by
     rank into a [cap] row padded with -1 (ascending positions). finalize
-    derives the near-miss bound from the lowest-scoring user match on device
-    (reference compute_matches.py:78-85 arithmetic in f32; the margin absorbs
-    the f64 difference).
+    passes ``low``, the lowest user-match score (``_local_low``), and the
+    near-miss bound derives from it on device (reference
+    compute_matches.py:78-85 arithmetic in f32; the margin absorbs the f64
+    difference); otherwise it is ``near_miss``.
 
     Every op is elementwise or a reduction within one row, so a row's bits
     are the same whatever B is: the solo and group paths agree."""
@@ -63,11 +76,8 @@ def _banded_core(avg, counts, weights, threshold, near_miss, eps,
     valid = (counts > 0).all(dim=1)                                 # [B, N]
     scores = torch.where(valid, scores_from_similarities(avg, weights),
                          torch.tensor(-torch.inf, device=avg.device))
-    if finalize:
-        um_scores = torch.where(um_mask & torch.gather(valid, 1, um_pos),
-                                torch.gather(scores, 1, um_pos),
-                                torch.tensor(torch.inf, device=avg.device))
-        low = torch.clamp(um_scores.amin(dim=1), max=1.0)
+    if low is not None:
+        low = torch.clamp(low, max=1.0)
         nm = (torch.clamp(threshold - low, min=0.0)
               / torch.clamp(1.0 - threshold, min=eps))
     else:
@@ -94,6 +104,117 @@ def _banded_core(avg, counts, weights, threshold, near_miss, eps,
     ], dim=1)
     return torch.cat([cand.reshape(b, -1), keep.reshape(b, -1),
                       n_cand.float()[:, None]], dim=1)
+
+
+def _local_low(avg, counts, weights, um_pos: np.ndarray, um_mask: np.ndarray,
+               spec: ShardSpec | None):
+    """f32[B]: the lowest score among the valid user matches of each row
+    that this shard owns (all of them when spec is None), +inf where there
+    is none. The score is elementwise in the clip, so scoring the gathered
+    user matches gives the bits of scoring every clip and gathering."""
+    dev = avg.device
+    if spec is not None:
+        um_pos, owner = spec.local(um_pos)
+        um_mask = um_mask & (owner == spec.rank)
+    b, s, _ = avg.shape
+    idx = torch.from_numpy(um_pos).to(dev)[:, None].expand(b, s, -1)
+    ok = (torch.from_numpy(um_mask).to(dev)
+          & (torch.gather(counts, 2, idx) > 0).all(dim=1))
+    um_scores = scores_from_similarities(torch.gather(avg, 2, idx), weights)
+    return torch.where(ok, um_scores,
+                       torch.tensor(torch.inf, device=dev)).amin(dim=1)
+
+
+def _local_rows(avg, counts, weights, threshold, near_miss, keep_pos: np.ndarray,
+                low, cap: int, spec: ShardSpec | None):
+    """This shard's packed rows (``_banded_core``) over its own positions:
+    a kept clip that another rank owns reads position 0 here, and the merge
+    takes that slot from its owner."""
+    if spec is not None:
+        keep_pos = spec.local(keep_pos)[0]
+    return _banded_core(avg, counts, weights, threshold, near_miss, compute_eps(),
+                        torch.from_numpy(keep_pos).to(avg.device), low, cap)
+
+
+def merge_banded(rows: np.ndarray, n_streams: int, cap: int, n_local: int,
+                 keep_owner: np.ndarray) -> np.ndarray:
+    """One packed row (``_banded_core``'s layout) of the whole index from the
+    R shards' rows of one query, f64[R, L] in rank order, no collective.
+
+    A shard's in-band positions fill the first min(n_in_band, cap) slots of
+    its row, ascending; offset by ``rank * n_local`` and concatenated in
+    rank order they stay ascending, and the first ``cap`` of them are the
+    unsharded row's. The kept slot j comes from rank ``keep_owner[j]``;
+    ``n_in_band`` is the sum, so a band wider than ``cap`` overflows the
+    merged row even when no shard's does. Slots past the band carry
+    position -1 and are never read."""
+    s = n_streams
+    cand_sz = (s + 2) * cap
+    kp = keep_owner.shape[0]
+    out = np.zeros(rows.shape[1])
+    cand = out[:cand_sz].reshape(s + 2, cap)
+    cand[s + 1] = -1.0
+    m = 0
+    for r, row in enumerate(rows):
+        n = min(int(row[-1]), cap - m)          # this shard's live prefix
+        cand[:, m:m + n] = row[:cand_sz].reshape(s + 2, cap)[:, :n]
+        cand[s + 1, m:m + n] += r * n_local
+        m += n
+    keep = rows[:, cand_sz:cand_sz + (s + 1) * kp].reshape(len(rows), s + 1, kp)
+    out[cand_sz:-1] = keep[keep_owner, :, np.arange(kp)].T.ravel()    # [S+1, KP]
+    out[-1] = rows[:, -1].sum()
+    return out
+
+
+def select_owned(stacked: np.ndarray, owner: np.ndarray) -> np.ndarray:
+    """Every rank's gather of the same positions, stacked [R, B, S, M] in
+    rank order, -> [B, S, M] with each position's values from the rank that
+    owns it (owner int[B, M]): a selection, so the bits move unchanged."""
+    _, b, s, m = stacked.shape
+    return stacked[owner[:, None, :], np.arange(b)[:, None, None],
+                   np.arange(s)[None, :, None], np.arange(m)[None, None, :]]
+
+
+def _band_rows(index: FeatureIndex, group, avg, counts, w: np.ndarray,
+               threshold, near_miss, keep_pos: np.ndarray, um_pos: np.ndarray,
+               um_mask: np.ndarray, finalize: bool, cap: int) -> Sequence[np.ndarray]:
+    """The packed rows (f64[L] each, global positions) of B queries over the
+    engine's index; on a shard, the rows of the whole index on every rank:
+    the user matches' minimum all-reduced, the shards' rows all-gathered
+    over ``group`` and merged (``merge_banded``), one array a query."""
+    dev = avg.device
+    spec = index.shard_spec
+    wt = torch.tensor(w, dtype=torch.float32, device=dev)
+    low = None
+    if finalize:
+        low = _local_low(avg, counts, wt, um_pos, um_mask, spec)
+        if spec is not None:
+            dist.all_reduce(low, op=dist.ReduceOp.MIN, group=group)
+    rows = _local_rows(
+        avg, counts, wt,
+        torch.tensor(threshold, dtype=torch.float32, device=dev),
+        torch.tensor(near_miss, dtype=torch.float32, device=dev),
+        keep_pos, low, cap, spec)
+    if spec is None:
+        return rows.cpu().numpy().astype(np.float64)
+    stacked = all_gather_cat(rows[None], group).cpu().numpy().astype(np.float64)
+    owners = spec.locate(keep_pos)[0]
+    return [merge_banded(stacked[:, i], len(index.streams), cap, spec.n_local, owners[i])
+            for i in range(stacked.shape[1])]
+
+
+def _reviewed_rows(index: FeatureIndex, group, rows, pos: np.ndarray) -> np.ndarray:
+    """f32[B, S, M] of rows [B, S, N] (on the device) at the global positions
+    pos int[B, M], on the host; on a shard, each gathered on the rank that
+    owns it, then all-gathered over ``group`` and selected."""
+    spec = index.shard_spec
+    local = pos if spec is None else spec.local(pos)[0]
+    idx = torch.from_numpy(local).to(rows.device)[:, None].expand(-1, rows.shape[1], -1)
+    got = torch.gather(rows, 2, idx)
+    if spec is None:
+        return got.cpu().numpy()
+    return select_owned(all_gather_cat(got[None], group).cpu().numpy(),
+                        spec.locate(pos)[0])
 
 
 def _scores_f64(avg: np.ndarray, w: np.ndarray) -> np.ndarray:
@@ -177,6 +298,19 @@ def _reviewed_positions(index: FeatureIndex, reviewed_labels
     return positions, labels
 
 
+def pack_targets(index: FeatureIndex, targets: Sequence[Mapping]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Q target dicts -> (f32[Q, S, K, D], bool[Q, S, K]) on the index's
+    device, each vector rounded from float64 to float32 once."""
+    s, k, d = len(index.streams), len(index.splits), index.feature_dim
+    t = np.zeros((len(targets), s, k, d), np.float32)
+    m = np.zeros((len(targets), s, k), bool)
+    for qi, target in enumerate(targets):
+        ta, ma = index.target_arrays_host(target)
+        t[qi], m[qi] = ta.astype(np.float32), ma
+    return torch.from_numpy(t).to(index.device), torch.from_numpy(m).to(index.device)
+
+
 def _round_state(hp: HyperParams, sim: np.ndarray, labels: list[float]
                  ) -> tuple[HyperParams, GridResult]:
     result = optimize_weights(
@@ -194,16 +328,24 @@ class ResidentTable:
     rows ([S, M] for M reviewed clips); round_scores() downloads only the
     banded candidates plus kept clips, returning the reduced ascending-clip-id
     scores dict that select_clips_to_review needs — its exact float64 band
-    filtering makes the selection identical to the full-download path."""
+    filtering makes the selection identical to the full-download path.
 
-    def __init__(self, index: FeatureIndex, avg, counts, batch=None):
+    On a shard of the index (a sharded SearchEngine), avg/counts are the
+    shard's and every method is a collective over ``group``, the mesh's
+    "data" group: every rank makes the same calls and gets the same
+    results."""
+
+    def __init__(self, index: FeatureIndex, avg, counts, batch=None, group=None):
+        if index.shard_spec is not None and group is None:
+            raise ValueError("a resident table over a shard needs the data group")
         self.index = index
-        self.avg = avg        # f32[S, Npad] device
+        self.avg = avg        # f32[S, Npad] device (the shard's n_local)
         self.counts = counts  # i32[S, Npad] device
         # (avg_q f32[Q,S,Npad], counts_q, qi) when this table is one row of
         # a batched poll group (compute_similarities_multi): optimize_many /
         # round_scores_many then serve the whole group with one download
         self.batch = batch
+        self.group = group
 
     def _positions(self, clip_ids: Sequence[int]) -> list[int]:
         out = []
@@ -219,8 +361,8 @@ class ResidentTable:
         """SimilarityTable.optimize semantics; the reviewed similarities are
         gathered on device and downloaded alone."""
         positions, labels = _reviewed_positions(self.index, reviewed_labels)
-        pos = torch.as_tensor(positions, dtype=torch.int64, device=self.avg.device)
-        sim = self.avg[:, pos].cpu().numpy()
+        sim = _reviewed_rows(self.index, self.group, self.avg[None],
+                             np.asarray([positions], np.int64))[0]
         return _round_state(hp, sim, labels)
 
     def round_scores(
@@ -293,24 +435,19 @@ class ResidentTable:
                            ) -> dict[int, float] | None:
         w, keep_pos, n_keep, um_pos, um_mask = self._banded_args(
             weights, keep_ids, user_match_ids)
-        dev = self.avg.device
-        packed = _banded_core(
-            self.avg[None], self.counts[None],
-            torch.tensor(w[None], dtype=torch.float32, device=dev),
-            torch.tensor([threshold], dtype=torch.float32, device=dev),
-            torch.tensor([near_miss], dtype=torch.float32, device=dev),
-            compute_eps(),
-            torch.from_numpy(keep_pos[None]).to(dev),
-            torch.from_numpy(um_pos[None]).to(dev),
-            torch.from_numpy(um_mask[None]).to(dev),
-            cap=cap, finalize=finalize,
-        )[0].cpu().numpy().astype(np.float64)
+        packed = _band_rows(self.index, self.group, self.avg[None], self.counts[None],
+                            w[None], [threshold], [near_miss], keep_pos[None],
+                            um_pos[None], um_mask[None], finalize, cap)[0]
         return self._unpack_banded(packed, w, keep_pos, n_keep, cap)
 
     def to_table(self) -> SimilarityTable:
-        """Full-download fallback (identical to compute_similarities)."""
-        return SimilarityTable(self.index, self.avg.cpu().numpy(),
-                               self.counts.cpu().numpy())
+        """Full-download fallback (identical to compute_similarities); on a
+        shard, the whole table all-gathered."""
+        avg, counts = self.avg, self.counts
+        if self.index.shard_spec is not None:
+            avg = all_gather_cat(avg, self.group, dim=1)
+            counts = all_gather_cat(counts, self.group, dim=1)
+        return SimilarityTable(self.index, avg.cpu().numpy(), counts.cpu().numpy())
 
 
 def _shared_batch(tables: Sequence[ResidentTable]):
@@ -348,10 +485,8 @@ def optimize_many(
     for qi, (table, (positions, _)) in enumerate(zip(tables, per)):
         pos_q[qi], _ = _pad_positions(positions, at_least=m_bucket)
         sel[qi] = table.batch[2]
-    dev = avg_q.device
-    rows = avg_q[torch.from_numpy(sel).to(dev)]                 # [Q, S, N]
-    idx = torch.from_numpy(pos_q).to(dev)[:, None].expand(-1, rows.shape[1], -1)
-    sims = torch.gather(rows, 2, idx).cpu().numpy()             # [Q, S, M]
+    rows = avg_q[torch.from_numpy(sel).to(avg_q.device)]        # [Q, S, N]
+    sims = _reviewed_rows(tables[0].index, tables[0].group, rows, pos_q)  # [Q, S, M]
     return [_round_state(hp, sims[qi][:, :len(positions)], lab)
             for qi, (positions, lab) in enumerate(per)]
 
@@ -381,7 +516,6 @@ def round_scores_many(
     results: list = [None] * len(tables)
     avg_q, counts_q = shared
     dev = avg_q.device
-    eps = compute_eps()
     by_flavor: dict[bool, list[int]] = {}
     for i, r in enumerate(rounds):
         by_flavor.setdefault(bool(r["finalize"]), []).append(i)
@@ -396,20 +530,13 @@ def round_scores_many(
             rounds[i]["user_match_ids"], keep_bucket, um_bucket)
             for i in idxs]
         sel = torch.tensor([tables[i].batch[2] for i in idxs], device=dev)
-        packed = _banded_core(
-            avg_q[sel], counts_q[sel],
-            torch.tensor(np.stack([a[0] for a in args]), dtype=torch.float32,
-                         device=dev),
-            torch.tensor([rounds[i]["threshold"] for i in idxs],
-                         dtype=torch.float32, device=dev),
-            torch.tensor([rounds[i]["near_miss"] for i in idxs],
-                         dtype=torch.float32, device=dev),
-            eps,
-            torch.from_numpy(np.stack([a[1] for a in args])).to(dev),
-            torch.from_numpy(np.stack([a[3] for a in args])).to(dev),
-            torch.from_numpy(np.stack([a[4] for a in args])).to(dev),
-            cap=caps[0], finalize=finalize,
-        ).cpu().numpy().astype(np.float64)
+        packed = _band_rows(
+            tables[0].index, tables[0].group, avg_q[sel], counts_q[sel],
+            np.stack([a[0] for a in args]),
+            [rounds[i]["threshold"] for i in idxs],
+            [rounds[i]["near_miss"] for i in idxs],
+            np.stack([a[1] for a in args]), np.stack([a[3] for a in args]),
+            np.stack([a[4] for a in args]), finalize, caps[0])
         for row, (i, (w, keep_pos, n_keep, _up, _um)) in enumerate(
                 zip(idxs, args)):
             out = tables[i]._unpack_banded(packed[row], w, keep_pos, n_keep,
@@ -432,13 +559,34 @@ class SearchEngine:
     - exact=True: float64 on host BLAS — bit-comparable to the reference's
       numpy math for parity validation and small corpora. Requires the index
       to have been built with keep_host=True.
+
+    With ``mesh`` (a (data, model) ``DeviceMesh`` over an initialized world,
+    ``core/meshes.py``) the engine keeps only this rank's "data" shard of
+    ``index`` on the mesh's device (a view on a world of one), runs K1 on
+    it, and every call is a collective over the "data" group whose results
+    are the unsharded engine's (module docstring). Every rank makes the
+    same calls. A shard (``FeatureIndex.shard``) is refused: pass the whole
+    index and the mesh.
     """
 
-    def __init__(self, index: FeatureIndex, exact: bool = False):
-        self.index = index
-        self.exact = exact
+    def __init__(self, index: FeatureIndex, exact: bool = False, mesh=None):
+        if index.shard_spec is not None:
+            raise ValueError(
+                f"the index is a shard ({index.shard_spec}); pass the whole index "
+                "and mesh=..., and SearchEngine(index, mesh=mesh) shards it over "
+                "the mesh's data axis")
         if exact and index.host_feats is None:
             raise ValueError("exact mode needs FeatureIndex.build(keep_host=True)")
+        self.group = None
+        if mesh is not None:
+            if exact:
+                raise ValueError("exact mode is the host float64 path; it takes no mesh")
+            rank, world = data_rank_and_size(mesh)
+            self.group = mesh.get_group(DATA_AXIS)
+            # raises ValueError unless world divides the padded clip axis
+            index = index.shard(rank, world, mesh_device(mesh))
+        self.index = index
+        self.exact = exact
 
     def compute_similarities(
         self, target: Mapping[str, Mapping[int, list]]
@@ -466,7 +614,9 @@ class SearchEngine:
         launch (scoring.ensemble_similarities_batched). Returns one
         SimilarityTable (or ResidentTable, resident=True) per target, in
         order. K1's per-query bits do not depend on Q, so a query processed
-        alone and in a batch give IDENTICAL similarities; Q needs no padding."""
+        alone and in a batch give IDENTICAL similarities; Q needs no padding.
+        Sharded: one K1 launch on the shard; a SimilarityTable is the
+        all-gathered [S, N_pad] of the whole index on every rank."""
         if self.exact:
             raise ValueError("exact mode scores targets host-side one at a "
                              "time (SearchEngine.compute_similarities)")
@@ -474,19 +624,15 @@ class SearchEngine:
         if q == 0:
             return []
         idx = self.index
-        s, k, d = len(idx.streams), len(idx.splits), idx.feature_dim
-        t = np.zeros((q, s, k, d), np.float32)
-        m = np.zeros((q, s, k), bool)
-        for qi, target in enumerate(targets):
-            ta, ma = idx.target_arrays_host(target)
-            t[qi], m[qi] = ta.astype(np.float32), ma
-        avg, counts = ensemble_similarities_batched(
-            torch.from_numpy(t).to(idx.device), torch.from_numpy(m).to(idx.device),
-            idx.feats, idx.mask)
+        avg, counts = ensemble_similarities_batched(*pack_targets(idx, targets),
+                                                    idx.feats, idx.mask)
         if resident:
             return [ResidentTable(idx, avg[qi], counts[qi],
-                                  batch=(avg, counts, qi))
+                                  batch=(avg, counts, qi), group=self.group)
                     for qi in range(q)]
+        if self.group is not None:
+            avg = all_gather_cat(avg, self.group, dim=2)
+            counts = all_gather_cat(counts, self.group, dim=2)
         avg_h, counts_h = avg.cpu().numpy(), counts.cpu().numpy()
         return [SimilarityTable(idx, avg_h[qi], counts_h[qi])
                 for qi in range(q)]

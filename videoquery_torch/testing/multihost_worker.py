@@ -2,18 +2,20 @@
 
 Port of ``videoquery/testing/multihost_worker.py``. Each worker joins a
 ``torch.distributed`` world (Gloo on the CPU, NCCL on a card; one rank a
-device) and runs the two programs whose collectives cross the process
+device) and runs the three programs whose collectives cross the process
 boundary:
 
   1. ShardedSearch top-k (the index split over the "data" axis, shard-local
      top-k, one all-gather of the [Q, k] candidates),
   2. two TSNTrainer steps with dropout 0.5 (the batch split over "data",
      DDP's gradient all-reduce),
+  3. the data-sharded serving program: ``SearchEngine(index, mesh=mesh)``'s
+     table, resident rounds and optimizer (``testing/sharded_serving.py``),
 
 on the deterministic world of ``run_world`` and writes its results to
 --out as JSON, so the spawning test can check that the workers agree, that
-they equal a world of one rank, and that the top-k ids equal the JAX
-package's world (tests/test_torch_multihost.py).
+they equal a world of one rank and the unsharded engine, and that the
+top-k ids equal the JAX package's world (tests/test_torch_multihost.py).
 
 With ``--world extract`` it runs instead the sharded extractor
 (``run_extract_world``): the same video through ``Extractor(mesh=...)`` on
@@ -73,29 +75,49 @@ def main() -> None:
 def run_world(device) -> dict:
     """The deterministic world, in an initialized process group: the same
     numpy draws, in the same order, as the JAX package's ``run_world``, so
-    the index, the targets and the training batch are equal to its."""
+    the index, the targets and the training batch are equal to its. Then
+    the data-sharded serving program (``testing/sharded_serving.py``) on
+    the same mesh, and the unsharded engine's run of it in this process."""
     import numpy as np
     import torch
 
     from videoquery_torch.core.meshes import make_mesh
-    from videoquery_torch.index.records import FeatureRecord
-    from videoquery_torch.index.store import FeatureIndex
-    from videoquery_torch.nn import bn_inception
-    from videoquery_torch.search.distributed import ShardedSearch
-    from videoquery_torch.train.trainer import TrainConfig, TSNTrainer
+    from videoquery_torch.testing.sharded_serving import serving_world
 
     device = torch.device(device)
-    # every rank along "data": the search's all-gather and the gradient
-    # all-reduce both cross the process boundary
+    # every rank along "data": the search's all-gather, the gradient
+    # all-reduce and the serving program's collectives all cross the
+    # process boundary
     mesh = make_mesh(device.type)
     rng = np.random.default_rng(0)
+    vals, ids = search_world(mesh, rng)
+    metrics, m2 = train_world(mesh, device, rng)
+    return {
+        "topk_vals": np.asarray(vals).tolist(),
+        "topk_ids": np.asarray(ids).tolist(),
+        "loss": metrics["loss"],
+        "accuracy": metrics["accuracy"],
+        "loss2": m2["loss"],
+        "serving": serving_world(device, mesh),
+        "serving_unsharded": serving_world(device),
+    }
+
+
+def search_world(mesh, rng, pad_multiple: int = 8):
+    """ShardedSearch's top-5 of 3 queries over a 40-clip index of 16-d
+    features (2 streams x 2 splits) drawn from ``rng``, padded to a
+    multiple of ``pad_multiple`` (of the data axis): (vals, ids)."""
+    from videoquery_torch.index.records import FeatureRecord
+    from videoquery_torch.index.store import FeatureIndex
+    from videoquery_torch.search.distributed import ShardedSearch
+
     streams = ("rgb", "warped_optical_flow")
     records = [
         FeatureRecord(cid, s, k, "global_pool", rng.normal(size=16))
         for cid in range(1, 41) for s in streams for k in (1, 2)
     ]
-    index = FeatureIndex.build(records, streams, feature_dim=16, pad_multiple=8,
-                               device="cpu")
+    index = FeatureIndex.build(records, streams, feature_dim=16,
+                               pad_multiple=pad_multiple, device="cpu")
     search = ShardedSearch(index, mesh)
     targets = [
         {s: {k: rng.normal(size=16).tolist() for k in (1, 2)}
@@ -103,23 +125,24 @@ def run_world(device) -> dict:
         for _ in range(3)
     ]
     weights = [{"rgb": 1.0, "warped_optical_flow": 1.5}] * 3
-    vals, ids = search.query_dicts(targets, weights, k=5)
+    return search.query_dicts(targets, weights, k=5)
+
+
+def train_world(mesh, device, rng, videos: int = 8):
+    """Two TSNTrainer steps (dropout 0.5, 2 segments, 7 classes) over the
+    mesh's "data" axis on a batch of ``videos`` at 64x64 drawn from ``rng``:
+    the two steps' metrics."""
+    import numpy as np
+
+    from videoquery_torch.nn import bn_inception
+    from videoquery_torch.train.trainer import TrainConfig, TSNTrainer
 
     cfg = TrainConfig(num_segments=2, num_classes=7, dropout_rate=0.5)
     params = bn_inception.init_params(0, in_channels=3, num_classes=7)
     trainer = TSNTrainer(params, cfg, mesh=mesh, device=device)
-    frames = rng.normal(size=(8, 2, 64, 64, 3)).astype(np.float32)
-    labels = rng.integers(0, 7, size=(8,))
-    metrics = trainer.step(frames, labels, seed=0)
-    m2 = trainer.step(frames, labels, seed=1)
-
-    return {
-        "topk_vals": np.asarray(vals).tolist(),
-        "topk_ids": np.asarray(ids).tolist(),
-        "loss": metrics["loss"],
-        "accuracy": metrics["accuracy"],
-        "loss2": m2["loss"],
-    }
+    frames = rng.normal(size=(videos, 2, 64, 64, 3)).astype(np.float32)
+    labels = rng.integers(0, 7, size=(videos,))
+    return trainer.step(frames, labels, seed=0), trainer.step(frames, labels, seed=1)
 
 
 def extract_world_video(n_frames: int = 46, h: int = 64, w: int = 80, seed: int = 0):
@@ -155,11 +178,12 @@ def extract_world_tvl1():
                       rescue_frac=0.25, rescue_trigger=0.4)
 
 
-def run_extract_world(device, meshes=((2, 1), (1, 2))) -> dict:
+def run_extract_world(device, meshes=((2, 1), (1, 2)), splits=(1, 2)) -> dict:
     """The sharded extractor on each (data, model) shape of ``meshes`` over
-    the initialized world: every batch's clip numbers and signatures, how
-    many CSVs this rank wrote ({"<data>x<model>/<key>": array}), and on a
-    model axis of 2 whether an ensemble of 3 splits was refused."""
+    the initialized world, with an ensemble of ``splits`` a stream: every
+    batch's clip numbers and signatures, how many CSVs this rank wrote
+    ({"<data>x<model>/<key>": array}), and on a model axis of 2 whether an
+    ensemble of 3 splits was refused."""
     import tempfile
 
     import numpy as np
@@ -173,8 +197,8 @@ def run_extract_world(device, meshes=((2, 1), (1, 2))) -> dict:
     from videoquery_torch.pipeline.extract import Extractor, gather_signatures
 
     device = torch.device(device)
-    tsn = TwoStreamTSN(StreamEnsemble.random(0, 3, (1, 2), device),
-                       StreamEnsemble.random(1, 10, (1, 2), device))
+    tsn = TwoStreamTSN(StreamEnsemble.random(0, 3, splits, device),
+                       StreamEnsemble.random(1, 10, splits, device))
     frames = extract_world_video()
     out = {}
     for data, model in meshes:
