@@ -66,7 +66,13 @@ Phases, each printing its own lines; any failure exits non-zero:
             batch: device busy time, idle share, the top kernels, the
             device time by kind (T1, cuDNN convs, pools, casts and
             elementwise passes, concats), K2's, K3's and T1's device time
-            and device launches.
+            and device launches. The dispatch: both CLI runs' CSV trees
+            equal, byte for byte, the CLI's with the rescue decided at once
+            (embed_step(prepare_step(...)), the order before the deferred
+            wait); the host's time blocked a bf16 batch (in the rescue's
+            read-back), alone and 4 queued back to back, and, from the
+            batch's trace, its idle share and its host waits, on their own
+            lines.
 8b. ingest the operator's ingest path, in phase 8's directory: a second
             synthetic 340x256 video (4 full clips and a tail) beside phase 8's;
             the extraction CLI on both with 2 decode worker processes, the
@@ -151,8 +157,11 @@ Phases, each printing its own lines; any failure exits non-zero:
             sharded run (counts set to 0 just before it) must launch K2 and
             K3, and T1 in bf16, and call the sharded code's NCCL all-gathers
             (the rescue's peaks, the model shard's embeddings, the data
-            shard's signatures; each over a group of one); clips/s of both
-            over the video (host payload included), in turns. Then the extraction measurement tools at
+            shard's signatures; each over a group of one), and the unsharded
+            signatures with the rescue decided at once bit for bit too;
+            clips/s of both over the video (host payload included), in
+            turns; one sharded bf16 and f32 batch traced: its idle share and
+            host waits, on their own lines. Then the extraction measurement tools at
             production geometry, each with its table on its own lines and
             K2's, K3's and T1's launches counted around it:
             videoquery_torch.tools.flow_bench --levels (500 pairs at 128x128,
@@ -236,6 +245,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import os
@@ -338,6 +348,50 @@ def p50_ms(fn, repeats: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def rescue_decided_at_once():
+    """extract_step as embed_step(prepare_step(...)) while the block runs:
+    the rescue decided before the networks are queued, the order before
+    the deferred wait, which the dispatch's results must equal bit for
+    bit."""
+    from videoquery_torch.pipeline import extract
+
+    step = extract.extract_step
+
+    def at_once(tsn, frames_u8, plan, cfg, warped, tvl1, dtype="float32", gray_u8=None,
+                native_hw=None, flow_impl="pallas", warm_advect=0, mesh=None, shard=None):
+        return extract.embed_step(tsn, *extract.prepare_step(
+            frames_u8, plan, cfg, warped, tvl1, dtype, gray_u8, native_hw, flow_impl,
+            warm_advect, shard), mesh)
+
+    extract.extract_step = at_once
+    try:
+        yield
+    finally:
+        extract.extract_step = step
+
+
+@contextlib.contextmanager
+def event_waits():
+    """The host's waits in torch.cuda.Event.synchronize while the block
+    runs (the extraction batch's one wait, the rescue's read-back), in ms:
+    yields the list they are appended to."""
+    import torch
+
+    waits, sync = [], torch.cuda.Event.synchronize
+
+    def timed(self):
+        t0 = time.perf_counter()
+        sync(self)
+        waits.append((time.perf_counter() - t0) * 1e3)
+
+    torch.cuda.Event.synchronize = timed
+    try:
+        yield waits
+    finally:
+        torch.cuda.Event.synchronize = sync
 
 
 def check_close(name: str, got, want, errs: list) -> None:
@@ -750,24 +804,34 @@ def cuda_ms(fn, repeats: int = 10) -> float:
     return start.elapsed_time(end) / repeats
 
 
+# the CUDA runtime calls in which the host waits for the card
+HOST_WAITS = {"cudaEventSynchronize", "cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpy"}
+
+
 def trace(fn, top: int = 8, warm: bool = True) -> dict:
     """One torch.profiler trace of fn() (after one untraced call if `warm`):
     traced wall ms (host clock around a synchronised call), device busy ms
-    (the union of kernel intervals), the idle share, and the `top` kernels
-    by device time."""
+    (the union of kernel intervals), the idle share, the host's waits for
+    the card inside fn() (HOST_WAITS: how many, and their ms), and the `top`
+    kernels by device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     if warm:
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        with record_function("chip_smoke.traced_call"):
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    call = next(e.time_range for e in prof.events() if e.name == "chip_smoke.traced_call")
+    waits = [e for e in prof.events() if e.name in HOST_WAITS
+             and call.start <= e.time_range.start <= call.end]
     busy, end = 0.0, float("-inf")
     for e in sorted(kernels, key=lambda e: e.time_range.start):
         if e.time_range.end > end:
@@ -780,6 +844,8 @@ def trace(fn, top: int = 8, warm: bool = True) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {"wall_ms": wall, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / 1e3 / wall if kernels else None,
+            "host_waits": len(waits),
+            "host_blocked_ms": sum(e.time_range.elapsed_us() for e in waits) / 1e3,
             "top": [(name[:90], ms, n) for name, (ms, n) in ranked],
             "by_name": by_name}
 
@@ -1091,6 +1157,16 @@ def phase_extract(dev, tmp: str) -> dict:
         f"worst CSV mean |bf16 - f32| / mean |f32| {worst:.4f} (< 0.1)")
     assert worst < 0.1, worst
 
+    # both CLI runs against the rescue decided at once (the order before
+    # the deferred wait): the same CSV bytes
+    for tree, flags in ((out, []), (out16, ["--dtype", "bfloat16"])):
+        with rescue_decided_at_once():
+            extract.main([video, "--out", tree + "_at_once", "--seed", "0", *flags])
+        assert csv_tree(tree) == csv_tree(tree + "_at_once"), (
+            f"the CLI's CSVs {flags} differ from the rescue decided at once")
+    log("[extract] both CLI runs' CSV trees equal, byte for byte, the CLI's with the "
+        "rescue decided at once (embed_step(prepare_step(...)))")
+
     # timings of one 8-clip batch, and one clip against the CPU
     tsn = TwoStreamTSN.random(0, (1, 2, 3), dev)
     ex = extract.Extractor(tsn, device=dev)
@@ -1166,8 +1242,29 @@ def phase_extract(dev, tmp: str) -> dict:
         log_trace("extract", f"the rgb stream's 3 nets on 200 ticks, {dtype}", tr_net)
         nets[dtype] = {"wall_ms": tr_net["wall_ms"], "busy_ms": tr_net["busy_ms"],
                        "by_kind": by_kind(tr_net)}
+    # the host's wait a bf16 batch (the rescue's read-back), untraced: a
+    # batch synchronised alone, then 4 batches queued back to back
+    with event_waits() as alone:
+        for _ in range(3):
+            step("bfloat16")
+            torch.cuda.synchronize()
+    with event_waits() as queued:
+        for _ in range(4):
+            step("bfloat16")
+        torch.cuda.synchronize()
+    blocked = {"alone_ms": statistics.median(alone), "queued_ms": statistics.median(queued),
+               "waits_alone": len(alone), "waits_queued": len(queued)}
+    assert len(alone) == 3 and len(queued) == 4, (alone, queued)
+    log(f"[extract] host blocked a bf16 8-clip batch: p50 {blocked['alone_ms']:.3f} ms "
+        f"synchronised alone (3 batches), {blocked['queued_ms']:.3f} ms queued back to back "
+        f"(4 batches); one wait a batch (the rescue's read-back)")
     tr = trace(lambda: step("bfloat16"))
     log_trace("extract", "one 8-clip batch with bf16 networks", tr)
+    log(f"[extract] one bf16 8-clip batch, traced: device idle share {tr['idle_share']:.3f} "
+        f"(busy {tr['busy_ms']:.1f} of {tr['wall_ms']:.1f} ms)")
+    log(f"[extract] one bf16 8-clip batch, traced: host blocked {tr['host_blocked_ms']:.3f} ms "
+        f"in {tr['host_waits']} waits for the card")
+    assert tr["host_waits"] == 1, tr["host_waits"]
     k2_ms, k2_n = kernel_time(tr, k2.DEVICE_KERNELS)
     k3_ms, k3_n = kernel_time(tr, K3_KERNELS)
     t1_ms, t1_n = kernel_time(tr, T1_KERNELS)
@@ -1178,6 +1275,9 @@ def phase_extract(dev, tmp: str) -> dict:
             "step_bf16_again_ms": step16_again_ms, "step_bf16_unfused_ms": step16_unfused_ms,
             "t1_launches_per_bf16_batch": t1_per_batch,
             "bf16_criterion": max(crit16, worst), "rgb_nets_trace": nets,
+            "host_blocked_bf16_batch": dict(blocked, traced_ms=tr["host_blocked_ms"],
+                                            traced_waits=tr["host_waits"],
+                                            traced_idle_share=tr["idle_share"]),
             "bf16_batch_trace": {"wall_ms": tr["wall_ms"], "busy_ms": tr["busy_ms"],
                                  "idle_share": tr["idle_share"], "k2_ms": k2_ms,
                                  "k2_device_launches": k2_n, "k3_ms": k3_ms,
@@ -1241,6 +1341,13 @@ def phase_ingest(dev, tmp: str) -> dict:
         f"build and the workers' spawn; launches {launches}")
     for name, n in launches.items():
         assert n > 0, f"the ingest path never launched {name}"
+    with rescue_decided_at_once():
+        extract.main([tmp, "--out", out_mp + "_at_once", "--workers", "2", "--seed", "0",
+                      *flags])
+    assert csv_tree(out_mp) == csv_tree(out_mp + "_at_once"), (
+        "the ingest CLI's CSVs differ from the rescue decided at once")
+    log("[ingest] the CLI's CSVs equal, byte for byte, the CLI's with the rescue decided "
+        "at once")
 
     # one process, the same config and weights: the whole decoded video,
     # then the stream (timed), then the workers again (timed)
@@ -2065,6 +2172,7 @@ def phase_sharded_extract(dev, mesh, tmp: str, n_frames=8 * 150 + 40) -> dict:
     from videoquery_torch.kernels import tvl1_level as k2, window_warp as k3
     from videoquery_torch.nn.tsn import TwoStreamTSN
     from videoquery_torch.pipeline import decode, extract
+    from videoquery_torch.pipeline.payload import build_payload, plan_groups
 
     video = os.path.join(tmp, "synthetic_pan_zoom.mp4")
     write_synthetic_video(video, n_frames)
@@ -2093,13 +2201,17 @@ def phase_sharded_extract(dev, mesh, tmp: str, n_frames=8 * 150 + 40) -> dict:
         launches = {"K2": k2.LAUNCHES, "K3": k3.LAUNCHES, "T1": t1.LAUNCHES}
         sites = {"_dispatch_payload", "ensemble_embed", "_rescue_fast_motion"}
         assert set(gathers) == sites, f"the sharded run skipped an all-gather: {gathers}"
+        with rescue_decided_at_once():
+            at_once = extract.gather_signatures(list(plain.extract_frames(frames)))
         nums = [s.clip_numbers for s in got]
         assert nums == [s.clip_numbers for s in want] == [list(range(1, 9)), [9]], nums
-        for g, w in zip(got, want):
-            for a, b in ((g.rgb, w.rgb), (g.flow, w.flow)):
+        for g, w, r in zip(got, want, at_once):
+            for a, b, c in ((g.rgb, w.rgb, r.rgb), (g.flow, w.flow, r.flow)):
                 assert a.shape == b.shape and np.isfinite(a).all()
                 assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), (
                     f"sharded {dtype} signatures differ from the unsharded extractor's")
+                assert np.array_equal(b.view(np.uint32), c.view(np.uint32)), (
+                    f"{dtype} signatures differ from the rescue decided at once")
         need = ("K2", "K3") + (("T1",) if dtype == "bfloat16" else ())
         for name in need:
             assert launches[name] > 0, f"the sharded {dtype} extraction never launched {name}"
@@ -2114,6 +2226,16 @@ def phase_sharded_extract(dev, mesh, tmp: str, n_frames=8 * 150 + 40) -> dict:
         rate = {k: 9e3 / v for k, v in (("plain", t_plain), ("sharded", t_sharded),
                                           ("sharded_again", t_sharded2),
                                           ("plain_again", t_plain2))}
+        group, batch_nums = plan_groups(len(frames), sharded.cfg)[0]
+        payload = build_payload(frames, None, group, batch_nums, sharded.cfg,
+                                sharded.flow_res_div)
+        tr = trace(lambda: sharded._dispatch_payload(payload))
+        log(f"[sharded_extract] {dtype}: one sharded 8-clip batch (_dispatch_payload), "
+            f"traced: device idle share {tr['idle_share']:.3f} (busy {tr['busy_ms']:.1f} of "
+            f"{tr['wall_ms']:.1f} ms)")
+        log(f"[sharded_extract] {dtype}: one sharded 8-clip batch, traced: host blocked "
+            f"{tr['host_blocked_ms']:.3f} ms in {tr['host_waits']} waits for the card")
+        assert tr["host_waits"] == 1, tr["host_waits"]
         log(f"[sharded_extract] {dtype}: Extractor(mesh=make_mesh('cuda')) on a NCCL world "
             f"of 1, 9 clips (a batch of 8 and the tail): signatures bitwise equal to the "
             f"unsharded Extractor's; launches {launches}; NCCL all-gathers by caller "
@@ -2121,7 +2243,9 @@ def phase_sharded_extract(dev, mesh, tmp: str, n_frames=8 * 150 + 40) -> dict:
             f"frames -> signatures) unsharded {rate['plain']:.2f} / {rate['plain_again']:.2f}, "
             f"sharded {rate['sharded']:.2f} / {rate['sharded_again']:.2f}")
         out[dtype] = {"launches": launches, "all_gathers": gathers, "bitwise_equal": True,
-                      "clips_per_s": rate}
+                      "clips_per_s": rate,
+                      "batch_trace": {k: tr[k] for k in ("wall_ms", "busy_ms", "idle_share",
+                                                         "host_waits", "host_blocked_ms")}}
         del frames
     return out
 

@@ -13,6 +13,7 @@ versions are held against the JAX package on the CPU by the other
 ``tests/test_torch_*.py`` modules.
 """
 
+import contextlib
 import re
 
 import numpy as np
@@ -106,6 +107,32 @@ class _AtenOps(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.ops.append(str(func.overloadpacket))
         return func(*args, **(kwargs or {}))
+
+
+class _HostToDevice(TorchDispatchMode):
+    """Records each host-to-device copy as (source pinned, non_blocking,
+    bytes)."""
+
+    def __init__(self):
+        super().__init__()
+        self.copies = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        packet = func.overloadpacket
+        if packet is torch.ops.aten._to_copy:
+            src, dst = args[0], kwargs.get("device")
+            non_blocking = kwargs.get("non_blocking", False)
+        elif packet is torch.ops.aten.copy_:
+            dst, src = args[0].device, args[1]
+            non_blocking = args[2] if len(args) > 2 else kwargs.get("non_blocking", False)
+        else:
+            src = dst = None
+        if (src is not None and src.device.type == "cpu" and dst is not None
+                and torch.device(dst).type == "cuda"):
+            self.copies.append((src.is_pinned(), bool(non_blocking),
+                                src.numel() * src.element_size()))
+        return func(*args, **kwargs)
 
 
 def aten_ops(fn) -> list[str]:
@@ -536,3 +563,160 @@ def test_k1_shards_merged_equal_the_unsharded_engine():
         h_want, g_want = resident[qi].optimize(labels, hp)
         assert h_got == h_want
         assert np.array_equal(g_got.losses, g_want.losses)
+
+
+# -- the extractor's dispatch ---------------------------------------------------
+
+@contextlib.contextmanager
+def one_host_wait(tsn):
+    """Run the block under ``torch.cuda.set_sync_debug_mode("error")``: torch
+    raises at every call that makes the host wait for the card. On torch
+    2.11 (checked on an H100) that mode flags ``Event.synchronize``,
+    ``Stream.synchronize``, ``.cpu()``, ``bool()`` or ``.item()`` of a CUDA
+    tensor, a blocking host-to-device copy (pageable or pinned, and so
+    ``torch.tensor(..., device="cuda")``), ``torch.linalg.solve`` (it reads
+    its error code back), boolean-mask indexing and ``torch.nonzero``; it
+    lets through non-blocking copies to and from pinned memory,
+    ``pin_memory()``, ``Event.query``, ``topk`` and index gathers and
+    scatters, and also ``torch.cuda.synchronize()``, which is therefore made
+    to raise here by hand. ``torch.cuda.Event.synchronize``, the one wait
+    allowed (the rescue's read-back), is let through and logged with the
+    streams whose networks were queued before it. Yields that log."""
+    from videoquery_torch.pipeline import extract
+
+    waits, queued = [], []
+    embed, event_sync, device_sync = (extract.ensemble_embed, torch.cuda.Event.synchronize,
+                                      torch.cuda.synchronize)
+
+    def spy_embed(stream, x, mesh=None):
+        queued.append("rgb" if stream is tsn.rgb else "flow")
+        return embed(stream, x, mesh)
+
+    def allowed_wait(self):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            event_sync(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+        waits.append(tuple(queued))
+
+    def refused(*_a, **_k):
+        raise RuntimeError("torch.cuda.synchronize() inside an extraction batch")
+
+    extract.ensemble_embed, torch.cuda.Event.synchronize = spy_embed, allowed_wait
+    torch.cuda.synchronize = refused
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield waits
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        extract.ensemble_embed, torch.cuda.Event.synchronize = embed, event_sync
+        torch.cuda.synchronize = device_sync
+
+
+@pytest.fixture(scope="module")
+def bench_batches():
+    """The bench's extraction batches (8 clips x 150 frames at 256x340,
+    textured and uniform noise, seed 0) as host arrays, and its seeded
+    3-split TSN on the card."""
+    needs_card()
+    from videoquery_torch.nn.tsn import TwoStreamTSN
+    from videoquery_torch.tools.bench import extraction_frames
+
+    return ({kind: extraction_frames(kind, 8, 150, (256, 340), 2, 0)
+             for kind in ("textured", "noise")},
+            TwoStreamTSN.random(0, (1, 2, 3), "cuda:0"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_extract_step_waits_once_after_the_rgb_networks(bench_batches, dtype):
+    """A bench batch (textured, then noise) through extract_step makes no
+    host wait but the rescue's read-back, and that one only once the rgb
+    stream's networks are queued; its signatures equal
+    embed_step(prepare_step(...)) (the rescue decided at once) bit for bit,
+    and K2, K3 and T1 launch as before the change: 5 / 11 / 48 a textured
+    bf16 batch, 9 / 18 / 48 a noise one (T1 none in f32)."""
+    needs_card()
+    from videoquery_torch.core.config import ExtractionConfig
+    from videoquery_torch.pipeline.extract import (PRODUCTION_TVL1, embed_step,
+                                                   extract_step, prepare_step, step_plan)
+
+    dev = torch.device("cuda:0")
+    cfg = ExtractionConfig()
+    batches, tsn = bench_batches
+    plan = step_plan(150, cfg, "pallas", dev)
+    for kind, k2_k3 in (("textured", (5, 11)), ("noise", (9, 18))):
+        frames = torch.from_numpy(batches[kind]).to(dev)
+        want = embed_step(tsn, *prepare_step(frames, plan, cfg, True, PRODUCTION_TVL1, dtype))
+        torch.cuda.synchronize()
+        k2.LAUNCHES = k3.LAUNCHES = t1.LAUNCHES = 0
+        with one_host_wait(tsn) as waits:
+            got = extract_step(tsn, frames, plan, cfg, True, PRODUCTION_TVL1, dtype)
+        assert waits == [("rgb",)], (kind, waits)
+        launches = (k2.LAUNCHES, k3.LAUNCHES, t1.LAUNCHES)
+        assert launches == k2_k3 + ((48,) if dtype == "bfloat16" else (0,)), (kind, launches)
+        for g, w in zip(got, want):
+            assert g.shape == (3, 8, 1024) and bool(torch.isfinite(g).all())
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), kind
+
+
+@pytest.fixture(scope="module")
+def nccl_world_of_one(tmp_path_factory):
+    """A NCCL world of one rank on the card and its (data, model) mesh, for
+    this module's last tests."""
+    needs_card()
+    import torch.distributed as dist
+
+    from videoquery_torch.core.meshes import initialize_multihost, make_mesh
+
+    initialize_multihost(f"file://{tmp_path_factory.mktemp('nccl') / 'store'}", 1, 0,
+                         "cuda:0")
+    yield make_mesh("cuda")
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_a_dispatched_batch_uploads_once_and_waits_once(request, bench_batches, dtype, mesh):
+    """Extractor._dispatch_payload on the textured bench batch (after one on
+    the noise batch, so a copy that did not land shows), without and with a
+    mesh (a NCCL world of one rank): one host wait, after the rgb networks
+    are queued, and the signatures of embed_step(prepare_step(...)) on the
+    same frames bit for bit. Without a mesh the batch's one host-to-device
+    copy is the payload's, non-blocking from pinned memory (counted at the
+    aten level: on the H100 a torch.profiler trace of a dispatch shows the
+    upload's memcpy in a process's first traced dispatch and not in later
+    ones, though the runtime call is there); the profiler (the most of 3
+    traces) shows one copy into pinned memory, the rescue's choice, and no
+    pageable copy."""
+    needs_card()
+    from videoquery_torch.core.config import ExtractionConfig
+    from videoquery_torch.pipeline.extract import (PRODUCTION_TVL1, Extractor, embed_step,
+                                                   prepare_step)
+    from videoquery_torch.pipeline.payload import BatchPayload
+
+    batches, tsn = bench_batches
+    payload = BatchPayload(list(range(1, 9)), 150, batches["textured"], None, None)
+    ex = Extractor(tsn, ExtractionConfig(), device="cuda:0", dtype=dtype,
+                   mesh=request.getfixturevalue("nccl_world_of_one") if mesh else None)
+    want = embed_step(tsn, *prepare_step(torch.from_numpy(payload.clip_rgb).cuda(),
+                                         ex._plan(150), ex.cfg, True, PRODUCTION_TVL1, dtype))
+    ex._dispatch_payload(BatchPayload(payload.nums, 150, batches["noise"], None, None))
+    torch.cuda.synchronize()
+    with one_host_wait(tsn) as waits:
+        got = ex._dispatch_payload(payload)
+    assert waits == [("rgb",)], waits
+    assert got.clip_numbers == payload.nums
+    for g, w in ((got.rgb, want[0]), (got.flow, want[1])):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    if not mesh:
+        with _HostToDevice() as up:
+            ex._dispatch_payload(payload)
+        assert up.copies == [(True, True, payload.clip_rgb.nbytes)], up.copies
+        copies = {name: n for name, n in _launch.device_kernels(
+            lambda: ex._dispatch_payload(payload)).items() if "Memcpy" in name}
+        assert copies.get("Memcpy DtoH (Device -> Pinned)") == 1, copies
+        assert copies.get("Memcpy HtoD (Pinned -> Device)", 0) <= 1, copies
+        assert not [name for name in copies if "Pageable" in name], copies

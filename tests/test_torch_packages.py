@@ -27,8 +27,6 @@ MISSING = {
                           "shard itself (FeatureIndex.shard, the extractor's rows)",
     "core.replicated_sharding": "builds a JAX NamedSharding; a replicated tensor is "
                                 "an ordinary tensor on each rank",
-    "kernels.estimate_affine": "only the JAX package's tests call it (ROADMAP §1); the "
-                               "port's affine camera is motion.lk_affine_batch",
     "kernels.tvl1_flow": "the port's submodule kernels/tvl1_flow.py (the flow on K2 and "
                          "K3) has that name; the gather solver's function is "
                          "kernels.tvl1.tvl1_flow",

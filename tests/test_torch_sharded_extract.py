@@ -112,12 +112,12 @@ def one_rank():
     triggered = []
     rescue = te._rescue_fast_motion
 
-    def spy(i0, i1, u, v, warped, tvl1, max_disp=6, shard=None):
+    def spy(i0, i1, u, v, warped, tvl1, max_disp=6, shard=None, wait=True):
         n, h, w = u.shape
         mag = torch.maximum(u.abs(), v.abs())[:, :h // 4 * 4, :w // 4 * 4]
         peak = mag.reshape(n, h // 4, 4, w // 4, 4).mean(dim=(2, 4)).reshape(n, -1).amax(1)
         triggered.append(int((peak >= tvl1.rescue_trigger * max_disp).sum()))
-        return rescue(i0, i1, u, v, warped, tvl1, max_disp, shard)
+        return rescue(i0, i1, u, v, warped, tvl1, max_disp, shard, wait)
 
     tsn = TwoStreamTSN(StreamEnsemble.random(0, 3, (1, 2), "cpu"),
                        StreamEnsemble.random(1, 10, (1, 2), "cpu"))

@@ -7,21 +7,29 @@ with a pluggable batched warp. Homographies are in normalized coordinates
 (xn = 2x/W - 1), so one fit applies on any grid of the same field of view;
 an affine fit is in its grid's pixel coordinates
 (``affine_to_native_coords`` moves it to another grid). The single-pair
-fits ``estimate_affine`` and ``lk_affine`` are not ported: only the JAX
-package's tests call them.
+fits are here too: ``estimate_affine`` (an IRLS affine fit to a flow
+field) and ``lk_affine`` (the one-pair LK that ``lk_affine_batch``
+batches).
 
 Numbers: the cross-correlation is a convolution and its argmax moves under
 TF32, so callers turn TF32 off (the extractor does); ``jnp.median`` of an
 even count is the mean of the two middle values, which ``median_midpoint``
-reproduces (``torch.median`` returns the lower one).
+reproduces (``torch.median`` returns the lower one). The small solves use
+``torch.linalg.solve_ex``: ``torch.linalg.solve`` computes the same
+result and then reads the error code back, which makes the host wait for
+the card; ``jnp.linalg.solve`` checks nothing either.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from videoquery_torch.core.transfer import device_constant
+from videoquery_torch.kernels.warp import bilinear_sample, pixel_grid
 
 WarpFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -58,12 +66,49 @@ def global_translation(c0: torch.Tensor, c1: torch.Tensor,
     return torch.stack([-dx, -dy], dim=1).to(torch.int32)
 
 
+def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^-1 b without reading the error code back (see the module's text)."""
+    return torch.linalg.solve_ex(a, b)[0]
+
+
+def estimate_affine(flow_u: torch.Tensor, flow_v: torch.Tensor, n_irls: int = 3,
+                    delta: float = 1.0) -> torch.Tensor:
+    """Fit (u, v) ~ affine(x, y) to one flow field f32 [H, W]: the 2x3 A
+    with src = [x, y] + A @ [x, y, 1] the background motion. IRLS with the
+    weight min(1, delta / |residual|) lets independently moving foreground
+    count less. A is in this grid's pixel coordinates."""
+    h, w = flow_u.shape
+    dev = flow_u.device
+    xn, yn, sx, sy = _normalized_grid(h, w, dev)
+    g = torch.stack([xn.reshape(-1), yn.reshape(-1),
+                     torch.ones(h * w, dtype=torch.float32, device=dev)], dim=1)  # [N, 3]
+    u = flow_u.reshape(-1)
+    v = flow_v.reshape(-1)
+    eye = 1e-6 * torch.eye(3, dtype=torch.float32, device=dev)
+
+    def solve(weights):
+        gw = g * weights[:, None]
+        gtg = g.T @ gw + eye
+        return _solve(gtg, gw.T @ u), _solve(gtg, gw.T @ v)
+
+    au, av = solve(torch.ones_like(u))
+    for _ in range(n_irls):
+        ru = g @ au - u
+        rv = g @ av - v
+        r = torch.sqrt(ru * ru + rv * rv + 1e-8)
+        au, av = solve(torch.clamp(delta / r, max=1.0))
+    return torch.stack([
+        torch.stack([au[0] * sx, au[1] * sy, au[2] - au[0] - au[1]]),
+        torch.stack([av[0] * sx, av[1] * sy, av[2] - av[0] - av[1]]),
+    ])
+
+
 def affine_to_native_coords(A: torch.Tensor, rx: float, ry: float) -> torch.Tensor:
     """An affine fitted at coarse-grid coordinates (values already in native
     px) at native coordinates, x_c = x_n / rx: the linear terms divide by
     the ratio, the translation stays. [2, 3] or [N, 2, 3]."""
-    return A * torch.tensor([1.0 / rx, 1.0 / ry, 1.0], dtype=torch.float32,
-                            device=A.device)
+    return A * device_constant(("native_coords", rx, ry),
+                               lambda: np.float32([1.0 / rx, 1.0 / ry, 1.0]), A.device)
 
 
 def affine_camera(A: torch.Tensor, t: torch.Tensor, hw: tuple[int, int],
@@ -77,15 +122,54 @@ def affine_camera(A: torch.Tensor, t: torch.Tensor, hw: tuple[int, int],
     A[:, 1, 2] += t[:, 1].float()
     sx = hw[1] / coarse_hw[1]
     sy = hw[0] / coarse_hw[0]
-    A = A * torch.tensor([sx, sy], dtype=torch.float32, device=A.device)[:, None]
+    A = A * device_constant(("camera_scale", sx, sy), lambda: np.float32([sx, sy]),
+                            A.device)[:, None]
     return affine_to_native_coords(A, sx, sy)
 
 
 def affine_to_warp(A: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Background-motion affine -> the source-coordinate affine of
     warp.warp_affine: src = [x, y] + A @ [x, y, 1]."""
-    return A + torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=torch.float32,
-                            device=A.device)
+    return A + device_constant("affine_identity",
+                               lambda: np.float32([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]),
+                               A.device)
+
+
+def lk_affine(c0: torch.Tensor, c1: torch.Tensor, warp_fn=None, n_iters: int = 8,
+              huber_delta: float = 3.0) -> torch.Tensor:
+    """Direct affine alignment (Lucas-Kanade) of one pre-translated pair, c0
+    and c1 f32 [H, W]: Gauss-Newton on the intensities with c0's gradients
+    and a Huber weight at huber_delta x the median residual (of the whole
+    field). warp_fn(img, u, v) warps one image by +(u, v); by default a
+    border-clamped bilinear sample. Returns A [2, 3] with u(x, y) = A @
+    [x, y, 1] in this grid's pixel coordinates."""
+    h, w = c0.shape
+    xn, yn, sxn, syn = _normalized_grid(h, w, c0.device)
+    gy, gx = torch.gradient(c0)
+    sd = torch.stack([gx * xn, gx * yn, gx, gy * xn, gy * yn, gy])   # [6, H, W]
+    if warp_fn is None:
+        ys, xs = pixel_grid(h, w, c0.device)
+
+        def warp_fn(img, u, v):
+            return bilinear_sample(img[None], ys + v, xs + u)[0]
+
+    eye = 1e-6 * torch.eye(6, dtype=torch.float32, device=c0.device)
+    p = torch.zeros(6, dtype=torch.float32, device=c0.device)
+    for _ in range(n_iters):
+        u = p[0] * xn + p[1] * yn + p[2]
+        v = p[3] * xn + p[4] * yn + p[5]
+        r = warp_fn(c1, u, v) - c0
+        absr = r.abs()
+        thresh = huber_delta * median_midpoint(absr.reshape(-1)) + 1e-6
+        wgt = torch.clamp(thresh / (absr + 1e-8), max=1.0)
+        sw = sd * wgt
+        hess = torch.einsum("ihw,jhw->ij", sw, sd) + eye
+        b = torch.einsum("ihw,hw->i", sw, r)
+        p = p - _solve(hess, b)
+    return torch.stack([
+        torch.stack([p[0] * sxn, p[1] * syn, p[2] - p[0] - p[1]]),
+        torch.stack([p[3] * sxn, p[4] * syn, p[5] - p[3] - p[4]]),
+    ])
 
 
 def lk_affine_batch(c0: torch.Tensor, c1: torch.Tensor, warp_fn: WarpFn,
@@ -114,7 +198,7 @@ def lk_affine_batch(c0: torch.Tensor, c1: torch.Tensor, warp_fn: WarpFn,
         sw = sd * wgt[:, None]
         hess = torch.einsum("nihw,njhw->nij", sw, sd) + eye
         b = torch.einsum("nihw,nhw->ni", sw, r)
-        p = p - torch.linalg.solve(hess, b[..., None])[..., 0]
+        p = p - _solve(hess, b[..., None])[..., 0]
     return torch.stack([
         torch.stack([p[:, 0] * sxn, p[:, 1] * syn, p[:, 2] - p[:, 0] - p[:, 1]], dim=1),
         torch.stack([p[:, 3] * sxn, p[:, 4] * syn, p[:, 5] - p[:, 3] - p[:, 4]], dim=1),
@@ -170,7 +254,7 @@ def lk_homography_batch(c0: torch.Tensor, c1: torch.Tensor, warp_fn: WarpFn,
         sw = sd * wgt[:, None]
         hess = torch.einsum("nihw,njhw->nij", sw, sd) + eye
         b = torch.einsum("nihw,nhw->ni", sw, r)
-        p = p - torch.linalg.solve(hess, b[..., None])[..., 0]
+        p = p - _solve(hess, b[..., None])[..., 0]
     one = torch.ones_like(p[:, 0])
     return torch.stack([
         torch.stack([1.0 + p[:, 0], p[:, 1], p[:, 2]], dim=1),

@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from videoquery_torch.core.transfer import device_constant
+
 
 @functools.lru_cache(maxsize=64)
 def linear_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -44,9 +46,9 @@ def resize2(img: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
         return img
     dev = img.device
     if h != hw[0]:
-        rv = torch.from_numpy(linear_matrix(h, hw[0])).to(dev)
+        rv = device_constant(("linear", h, hw[0]), lambda: linear_matrix(h, hw[0]), dev)
         img = torch.matmul(rv, img)
     if w != hw[1]:
-        rh = torch.from_numpy(linear_matrix(w, hw[1])).to(dev)
+        rh = device_constant(("linear", w, hw[1]), lambda: linear_matrix(w, hw[1]), dev)
         img = torch.matmul(img, rh.T)
     return img

@@ -15,7 +15,11 @@ device (the pair path, ``flow_impl="pallas"``, the default everywhere):
          bfloat16 activations, f32 accumulation: ``dtype``)
       -> {stream: [K, B, 1024]} f32 signatures (ticks averaged)
 
-and reference-format CSVs from them (calcSig_wOF.py:116-134). With
+and reference-format CSVs from them (calcSig_wOF.py:116-134). On a CUDA
+device the host waits for the card once a batch, to read the rescue's
+choice back after the rgb stream's networks are queued (extract_step; the
+JAX package decides it under lax.cond), and a batch's payload goes up as
+one pinned, non-blocking copy (Extractor._dispatch_payload). With
 ``flow_impl="xla"`` the flow of every pair of the clip comes from the
 gather-warp solver (``kernels/tvl1.py``, plain PyTorch), the flow-quality
 gate's baseline; only a caller that names it gets it. The host half
@@ -57,6 +61,7 @@ from videoquery_torch.core.device import resolve_device
 from videoquery_torch.core.meshes import (DATA_AXIS, MODEL_AXIS, all_gather_cat,
                                           data_rank_and_size, model_rank_and_size,
                                           pad_to_multiple)
+from videoquery_torch.core.transfer import device_constant, put_tree
 from videoquery_torch.index.csvio import write_features_csv
 from videoquery_torch.index.records import FeatureRecord
 from videoquery_torch.kernels.resize import linear_matrix, resize2
@@ -176,17 +181,76 @@ class DataShard:
                           self.total_rows - 1)
 
 
+class _Rescue:
+    """The rescue's choice for one batch, queued on the device: whether any
+    pair triggered and the top-k pairs by peak, copied as one small int64
+    row into pinned host memory behind an event. ``resolve()`` waits for
+    that copy, the host's one wait of the batch, and re-solves the chosen
+    triggered pairs. Between the two the caller may queue work that does not
+    need the flow (extract_step queues the rgb stream's networks), so the
+    card stays busy while the host waits: the port's lax.cond."""
+
+    def __init__(self, i0, i1, u, v, peak, k: int, warped: bool, tvl1: TVL1Params,
+                 max_disp: int, shard: DataShard | None):
+        self.i0, self.i1, self.u, self.v = i0, i1, u, v
+        self.warped, self.tvl1, self.max_disp, self.shard = warped, tvl1, max_disp, shard
+        self.trig = peak >= tvl1.rescue_trigger * max_disp
+        self.idx = torch.topk(peak, k).indices
+        choice = torch.cat([self.trig.any().long()[None], self.idx])    # [1 + k]
+        self.done = None
+        if choice.is_cuda:
+            self.host = torch.empty(choice.shape, dtype=torch.int64, pin_memory=True)
+            self.host.copy_(choice, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(choice.device))
+        else:
+            self.host = choice
+
+    def resolve(self):
+        """(u, v) with the chosen triggered pairs replaced by their wide
+        solve."""
+        if self.done is not None:
+            self.done.synchronize()
+        fired, *chosen = self.host.tolist()
+        u, v = self.u, self.v
+        if not fired:
+            return u, v
+        idx, trig = self.idx, self.trig
+        if self.shard is not None:
+            # the chosen pairs of this rank's shard, as its local positions,
+            # from the host's copy of the choice
+            n = u.shape[0]
+            lo = self.shard.rank * n
+            local = [i - lo for i in chosen if lo <= i < lo + n]
+            if not local:
+                return u, v
+            idx = put_tree(np.asarray(local, np.int64), u.device)
+            trig = trig[lo:lo + n]
+        wide_fn = tvl1_warped_flow if self.warped else tvl1_flow
+        uw, vw = wide_fn(self.i0[idx].contiguous(), self.i1[idx].contiguous(), self.tvl1,
+                         max_disp=2 * self.max_disp)
+        sel = trig[idx][:, None, None]
+        u, v = u.clone(), v.clone()
+        u[idx] = torch.where(sel, uw, u[idx])
+        v[idx] = torch.where(sel, vw, v[idx])
+        return u, v
+
+
 def _rescue_fast_motion(i0, i1, u, v, warped: bool, tvl1: TVL1Params,
-                        max_disp: int = 6, shard: DataShard | None = None):
+                        max_disp: int = 6, shard: DataShard | None = None,
+                        wait: bool = True):
     """Re-solve clamp-saturated pairs cold with a doubled window.
 
     i0/i1 f32 [N, h, w] raw pair images, u/v their solved flow. A pair
     triggers when its peak 4x4-pooled |flow| reaches rescue_trigger *
     max_disp; the top rescue_frac of pairs by that peak are re-solved and
-    the triggered ones among them replaced. The JAX package does this under
-    lax.cond; here one host sync per batch decides. torch.topk may order
-    ties differently from lax.top_k, but only triggered pairs are replaced,
-    so the order of ties among the others does not matter.
+    the triggered ones among them replaced. The JAX package decides this
+    under lax.cond on the device; here the choice is made on the device and
+    read back once (``_Rescue``). With wait=True the result is (u, v); with
+    wait=False the pending ``_Rescue``, whose ``resolve()`` gives (u, v)
+    later. torch.topk may order ties differently from lax.top_k, but only
+    triggered pairs are replaced, so the order of ties among the others
+    does not matter.
 
     With a shard (pairs clip-major, the same count for each clip) the
     choice is the whole batch's, as in the JAX package's sharded program:
@@ -204,56 +268,25 @@ def _rescue_fast_motion(i0, i1, u, v, warped: bool, tvl1: TVL1Params,
         real = torch.arange(n, device=peak.device) < shard.rows * per_clip
         peak = all_gather_cat(torch.where(real, peak, -math.inf), shard.group)
         k = max(1, int(round(shard.total_rows * per_clip * tvl1.rescue_frac)))
-    trig = peak >= tvl1.rescue_trigger * max_disp
-    if not bool(trig.any()):
-        return u, v
-    idx = torch.topk(peak, k).indices
-    if shard is not None:
-        # the chosen pairs of this rank's shard, as its local positions
-        lo = shard.rank * n
-        mine = (idx >= lo) & (idx < lo + n)
-        trig = trig[lo:lo + n]
-        idx = idx[mine] - lo
-        if idx.numel() == 0:
-            return u, v
-    wide_fn = tvl1_warped_flow if warped else tvl1_flow
-    uw, vw = wide_fn(i0[idx].contiguous(), i1[idx].contiguous(), tvl1,
-                     max_disp=2 * max_disp)
-    sel = trig[idx][:, None, None]
-    u, v = u.clone(), v.clone()
-    u[idx] = torch.where(sel, uw, u[idx])
-    v[idx] = torch.where(sel, vw, v[idx])
-    return u, v
+    rescue = _Rescue(i0, i1, u, v, peak, k, warped, tvl1, max_disp, shard)
+    return rescue.resolve() if wait else rescue
 
 
-def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
-                  tvl1: TVL1Params, warm_plan=None, warm_camera: str = "own",
-                  warm_advect: int = 0, shard: DataShard | None = None):
-    """Raw (u, v) flow of the selected frame pairs, f32 [B, P, h, w] in
-    flow-grid pixels. warm_plan (key_pos, warm_pos, warm_src) turns on the
-    temporal warm start (sampling.flow_warm_plan): key pairs solve the full
-    pyramid, the others refine their key's flow at the finest level; with
-    warm_camera "key" or "init" they take (and with "init" refine, a
-    homography only) the key pair's camera.
-
-    warm_advect > 0 advects a warm pair's start: a pair j frames from its
-    key samples the key's flow where the content came from, u0(x) =
-    u_key(x - j * u_key(x)), one K3 call with window d = warm_advect, which
-    must cover max |j| * the flow (group // 2 * max_disp, max_disp = 6 by
-    default, at the production schedule). shard: gray is this rank's data shard (the rescue's
-    choice is the whole batch's)."""
+def _solve_pairs(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
+                 tvl1: TVL1Params, warm_plan=None, warm_camera: str = "own",
+                 warm_advect: int = 0):
+    """The selected pairs' images and flow before the rescue: (i0, i1, u, v),
+    each f32 [B * P, h, w], pairs clip-major (_pair_flow_uv)."""
     b, f, h, w = gray.shape
     i0 = gray[:, pair_idx]
     i1 = gray[:, pair_idx + 1]
     p = pair_idx.shape[0]
+    i0f = i0.reshape(b * p, h, w)
+    i1f = i1.reshape(b * p, h, w)
     flow_fn = tvl1_warped_flow if warped else tvl1_flow
     if warm_plan is None or warm_plan[1].shape[0] == 0:
-        i0f = i0.reshape(b * p, h, w)
-        i1f = i1.reshape(b * p, h, w)
         u, v = flow_fn(i0f, i1f, tvl1)
-        if tvl1.rescue_frac > 0:
-            u, v = _rescue_fast_motion(i0f, i1f, u, v, warped, tvl1, shard=shard)
-        return u.reshape(b, p, h, w), v.reshape(b, p, h, w)
+        return i0f, i1f, u, v
 
     key_pos, warm_pos, warm_src = warm_plan
     k = key_pos.shape[0]
@@ -294,15 +327,40 @@ def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
     u[:, warm_pos] = uw.reshape(b, m, h, w)
     v[:, key_pos] = vk
     v[:, warm_pos] = vw.reshape(b, m, h, w)
+    return i0f, i1f, u.reshape(b * p, h, w), v.reshape(b * p, h, w)
+
+
+def _pair_flow_uv(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
+                  tvl1: TVL1Params, warm_plan=None, warm_camera: str = "own",
+                  warm_advect: int = 0, shard: DataShard | None = None):
+    """Raw (u, v) flow of the selected frame pairs, f32 [B, P, h, w] in
+    flow-grid pixels. warm_plan (key_pos, warm_pos, warm_src) turns on the
+    temporal warm start (sampling.flow_warm_plan): key pairs solve the full
+    pyramid, the others refine their key's flow at the finest level; with
+    warm_camera "key" or "init" they take (and with "init" refine, a
+    homography only) the key pair's camera.
+
+    warm_advect > 0 advects a warm pair's start: a pair j frames from its
+    key samples the key's flow where the content came from, u0(x) =
+    u_key(x - j * u_key(x)), one K3 call with window d = warm_advect, which
+    must cover max |j| * the flow (group // 2 * max_disp, max_disp = 6 by
+    default, at the production schedule). shard: gray is this rank's data shard (the rescue's
+    choice is the whole batch's)."""
+    b, p = gray.shape[0], pair_idx.shape[0]
+    i0, i1, u, v = _solve_pairs(gray, pair_idx, warped, tvl1, warm_plan, warm_camera,
+                                warm_advect)
     if tvl1.rescue_frac > 0:
-        uf, vf = _rescue_fast_motion(i0.reshape(b * p, h, w),
-                                     i1.reshape(b * p, h, w),
-                                     u.reshape(b * p, h, w),
-                                     v.reshape(b * p, h, w), warped, tvl1,
-                                     shard=shard)
-        u = uf.reshape(b, p, h, w)
-        v = vf.reshape(b, p, h, w)
-    return u, v
+        u, v = _rescue_fast_motion(i0, i1, u, v, warped, tvl1, shard=shard)
+    h, w = u.shape[1:]
+    return u.reshape(b, p, h, w), v.reshape(b, p, h, w)
+
+
+def _quantize_pairs(u: torch.Tensor, v: torch.Tensor, bound: float,
+                    value_scale: tuple[float, float]) -> torch.Tensor:
+    """(u, v) f32 [B, P, h, w] in flow-grid pixels -> u8 [B, P, h, w, 2]
+    quantized in native pixels (value_scale (sx, sy))."""
+    uv = torch.stack([u * value_scale[0], v * value_scale[1]], dim=-1)
+    return quantize_flow(uv, bound)
 
 
 def _pair_flow(gray, pair_idx, bound: float, warped: bool, tvl1: TVL1Params,
@@ -313,8 +371,7 @@ def _pair_flow(gray, pair_idx, bound: float, warped: bool, tvl1: TVL1Params,
     (sx, sy) converts flow-grid pixels to native pixels."""
     u, v = _pair_flow_uv(gray, pair_idx, warped, tvl1, warm_plan, warm_camera,
                          warm_advect, shard)
-    uv = torch.stack([u * value_scale[0], v * value_scale[1]], dim=-1)
-    return quantize_flow(uv, bound)
+    return _quantize_pairs(u, v, bound, value_scale)
 
 
 def _bf16_operands(x: torch.Tensor) -> torch.Tensor:
@@ -367,10 +424,10 @@ def _flow_gray_grid(frames_u8: torch.Tensor, flow_res_div: int,
     b, f = frames_u8.shape[:2]
     fh, fw = flow_grid_shape(h0, w0, flow_res_div)
     dev = frames_u8.device
-    rv = torch.from_numpy(linear_matrix(h0, fh)).to(dev)          # [fh, h0]
-    rh = torch.from_numpy(linear_matrix(w0, fw).T.copy()).to(dev)  # [w0, fw]
-    wvec = torch.tensor([0.114, 0.587, 0.299], dtype=torch.float32,
-                        device=dev) / 255.0
+    rv = device_constant(("linear", h0, fh), lambda: linear_matrix(h0, fh), dev)  # [fh, h0]
+    rh = device_constant(("linear_t", w0, fw), lambda: linear_matrix(w0, fw).T.copy(),
+                         dev)                                                      # [w0, fw]
+    wvec = device_constant("luma_bgr", lambda: np.float32([0.114, 0.587, 0.299]), dev) / 255.0
     whc = (rh[:, None, :] * wvec[None, :, None]).reshape(w0 * 3, fw)
     cast = (lambda x: x) if dev.type == "cpu" else _bf16_operands
     x = cast(frames_u8.reshape(b, f, h0, w0 * 3).float())
@@ -399,7 +456,7 @@ def step_plan(f_len: int, cfg: ExtractionConfig, flow_impl: str, device) -> Step
     check_flow_impl(flow_impl)
 
     def dev(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+        return put_tree(np.asarray(a, np.int64), device)
 
     ticks = dev(frame_ticks(f_len, cfg.num_ticks, 1) - 1)
     if flow_impl == "xla":
@@ -430,6 +487,62 @@ def ensemble_embed(stream: StreamEnsemble, x: torch.Tensor, mesh=None) -> torch.
     return all_gather_cat(local, mesh.get_group(MODEL_AXIS), dim=0)
 
 
+def _flow_gray(frames_u8: torch.Tensor, cfg: ExtractionConfig,
+               gray_u8: torch.Tensor | None, native_hw: tuple[int, int] | None):
+    """Gray f32 [B, F, fh, fw] at the flow grid and the flow-grid to
+    native-pixel value scale: the device's gray of the frames, or the
+    host's u8 gray (the compact upload)."""
+    if gray_u8 is None:
+        return _flow_gray_grid(frames_u8, cfg.flow_res_div, cfg.flow_gray_matmul)
+    if native_hw is not None:
+        h0, w0 = native_hw
+    else:
+        if cfg.host_crop:
+            raise ValueError("host_crop needs native_hw: the cropped "
+                             "tick frames no longer carry the native "
+                             "size the flow values must scale to")
+        h0, w0 = frames_u8.shape[2], frames_u8.shape[3]
+    fh, fw = gray_u8.shape[2], gray_u8.shape[3]
+    return gray_u8.float() / 255.0, (w0 / fw, h0 / fh)
+
+
+def _rgb_input(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
+               dtype: str, compact: bool) -> torch.Tensor:
+    """The rgb net's input [B, T, crop, crop, 3] in ``dtype``: the tick
+    frames (gathered here, or by the host with the compact upload, then
+    maybe resized, cropped and packed as I420 there too), preprocessed."""
+    host_cropped = compact and cfg.host_crop
+    if compact:
+        rgb_ticks = frames_u8          # the host gathered the tick frames
+        if host_cropped and cfg.host_yuv420:
+            rgb_ticks = _yuv420_to_bgr(rgb_ticks)    # f32 [B,T,crop,crop,3]
+    else:
+        rgb_ticks = frames_u8[:, plan.tick_idx]                     # [B,T,H,W,3]
+    return preprocess_rgb(rgb_ticks, cfg.frame_resize, cfg.crop_size, dtype=DTYPES[dtype],
+                          precropped=host_cropped)
+
+
+def _flow_input(flow_q: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
+                dtype: str) -> torch.Tensor:
+    """The flow net's input [B, T, crop, crop, 2D] in ``dtype``: the tick
+    stacks gathered from the quantized flow, x/y interleaved, preprocessed."""
+    b = flow_q.shape[0]
+    t, d = plan.stack_pos.shape
+    h, w = flow_q.shape[2:4]
+    stacks = flow_q[:, plan.stack_pos.reshape(-1)].reshape(b, t, d, h, w, 2)
+    # interleave x/y per depth -> channels [x1, y1, ..., xD, yD]
+    stacks = stacks.permute(0, 1, 3, 4, 2, 5).reshape(b, t, h, w, d * 2)
+    return preprocess_flow(stacks, cfg.frame_resize, cfg.crop_size, dtype=DTYPES[dtype])
+
+
+def _stream_embed(stream: StreamEnsemble, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A stream's ensemble on its input [B, T, H, W, C], ticks averaged ->
+    f32 [K, B, 1024]."""
+    b, t = x.shape[:2]
+    emb = ensemble_embed(stream, x.reshape((b * t,) + x.shape[2:]), mesh)
+    return emb.reshape(emb.shape[0], b, t, -1).mean(dim=2)
+
+
 @torch.no_grad()
 def prepare_step(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
                  warped: bool, tvl1: TVL1Params, dtype: str = "float32",
@@ -437,26 +550,12 @@ def prepare_step(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
                  native_hw: tuple[int, int] | None = None, flow_impl: str = "pallas",
                  warm_advect: int = 0, shard: DataShard | None = None):
     """The first half of extract_step, everything before the networks:
-    gray at the flow grid, the flow, the tick and stack gathers and the
-    preprocess. Returns the networks' NHWC inputs (rgb [B, T, crop, crop,
-    3], flow [B, T, crop, crop, 10]) in ``dtype``."""
+    gray at the flow grid, the flow (the rescue decided at once), the tick
+    and stack gathers and the preprocess. Returns the networks' NHWC inputs
+    (rgb [B, T, crop, crop, 3], flow [B, T, crop, crop, 10]) in ``dtype``;
+    embed_step on them gives extract_step's result bit for bit."""
     check_flow_impl(flow_impl)
-    host_cropped = gray_u8 is not None and cfg.host_crop
-    if gray_u8 is not None:
-        if native_hw is not None:
-            h0, w0 = native_hw
-        else:
-            if host_cropped:
-                raise ValueError("host_crop needs native_hw: the cropped "
-                                 "tick frames no longer carry the native "
-                                 "size the flow values must scale to")
-            h0, w0 = frames_u8.shape[2], frames_u8.shape[3]
-        fh, fw = gray_u8.shape[2], gray_u8.shape[3]
-        gray = gray_u8.float() / 255.0
-        vscale = (w0 / fw, h0 / fh)
-    else:
-        gray, vscale = _flow_gray_grid(frames_u8, cfg.flow_res_div,
-                                       cfg.flow_gray_matmul)
+    gray, vscale = _flow_gray(frames_u8, cfg, gray_u8, native_hw)
     if flow_impl == "pallas":
         flow_q = _pair_flow(gray, plan.pair_idx, cfg.flow_bound, warped, tvl1, vscale,
                             plan.warm, cfg.flow_warm_camera, warm_advect,
@@ -464,23 +563,8 @@ def prepare_step(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
     else:
         flow_q = _clip_flow(gray, cfg.flow_bound, warped, tvl1, flow_impl,
                             vscale)                                      # [B,F,h,w,2]
-    if gray_u8 is not None:
-        rgb_ticks = frames_u8          # the host gathered the tick frames
-        if host_cropped and cfg.host_yuv420:
-            rgb_ticks = _yuv420_to_bgr(rgb_ticks)    # f32 [B,T,crop,crop,3]
-    else:
-        rgb_ticks = frames_u8[:, plan.tick_idx]                     # [B,T,H,W,3]
-    b = frames_u8.shape[0]
-    t, d = plan.stack_pos.shape
-    h, w = flow_q.shape[2:4]
-    stacks = flow_q[:, plan.stack_pos.reshape(-1)].reshape(b, t, d, h, w, 2)
-    # interleave x/y per depth -> channels [x1, y1, ..., xD, yD]
-    stacks = stacks.permute(0, 1, 3, 4, 2, 5).reshape(b, t, h, w, d * 2)
-    dt = DTYPES[dtype]
-    rgb_in = preprocess_rgb(rgb_ticks, cfg.frame_resize, cfg.crop_size, dtype=dt,
-                            precropped=host_cropped)
-    flow_in = preprocess_flow(stacks, cfg.frame_resize, cfg.crop_size, dtype=dt)
-    return rgb_in, flow_in
+    return (_rgb_input(frames_u8, plan, cfg, dtype, gray_u8 is not None),
+            _flow_input(flow_q, plan, cfg, dtype))
 
 
 @torch.no_grad()
@@ -490,13 +574,7 @@ def embed_step(tsn: TwoStreamTSN, rgb_in: torch.Tensor, flow_in: torch.Tensor,
     prepare_step's inputs, ticks averaged -> (rgb, flow) f32 [K, B, 1024]
     (ensemble_embed: with a mesh, this rank's model shard and the
     all-gather over "model")."""
-    b, t = rgb_in.shape[:2]
-    rgb_emb = ensemble_embed(tsn.rgb, rgb_in.reshape((b * t,) + rgb_in.shape[2:]), mesh)
-    flow_emb = ensemble_embed(tsn.flow, flow_in.reshape((b * t,) + flow_in.shape[2:]),
-                              mesh)
-    k = rgb_emb.shape[0]
-    return (rgb_emb.reshape(k, b, t, -1).mean(dim=2),
-            flow_emb.reshape(k, b, t, -1).mean(dim=2))
+    return _stream_embed(tsn.rgb, rgb_in, mesh), _stream_embed(tsn.flow, flow_in, mesh)
 
 
 @torch.no_grad()
@@ -521,12 +599,32 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
     to native-pixel value scale.
 
     With a mesh, frames_u8 is this rank's data shard (``shard``) and the
-    networks run this rank's model shard; the
-    result is this rank's B clips with all K splits (prepare_step, then
-    embed_step)."""
-    rgb_in, flow_in = prepare_step(frames_u8, plan, cfg, warped, tvl1, dtype, gray_u8,
-                                   native_hw, flow_impl, warm_advect, shard)
-    return embed_step(tsn, rgb_in, flow_in, mesh)
+    networks run this rank's model shard; the result is this rank's B clips
+    with all K splits.
+
+    The host never waits for the card here but once, on a CUDA device with
+    the fast-motion rescue on: its choice is queued on the card, then the
+    rgb stream's networks, and only then does the host read the choice back
+    (``_Rescue``), re-solve the chosen pairs and queue the flow stream. The
+    result equals embed_step(prepare_step(...)) bit for bit: the same
+    kernels on the same inputs, queued in another order."""
+    if flow_impl != "pallas" or tvl1.rescue_frac <= 0:
+        # no rescue to decide: nothing on this path waits for the card
+        return embed_step(tsn, *prepare_step(frames_u8, plan, cfg, warped, tvl1, dtype,
+                                             gray_u8, native_hw, flow_impl, warm_advect,
+                                             shard), mesh)
+    gray, vscale = _flow_gray(frames_u8, cfg, gray_u8, native_hw)
+    b, p = gray.shape[0], plan.pair_idx.shape[0]
+    i0, i1, u, v = _solve_pairs(gray, plan.pair_idx, warped, tvl1, plan.warm,
+                                cfg.flow_warm_camera, warm_advect)
+    rescue = _rescue_fast_motion(i0, i1, u, v, warped, tvl1, shard=shard, wait=False)
+    rgb = _stream_embed(tsn.rgb, _rgb_input(frames_u8, plan, cfg, dtype, gray_u8 is not None),
+                        mesh)
+    u, v = rescue.resolve()                   # the batch's one wait for the card
+    h, w = u.shape[1:]
+    flow_q = _quantize_pairs(u.reshape(b, p, h, w), v.reshape(b, p, h, w), cfg.flow_bound,
+                             vscale)
+    return rgb, _stream_embed(tsn.flow, _flow_input(flow_q, plan, cfg, dtype), mesh)
 
 
 @dataclasses.dataclass
@@ -538,6 +636,17 @@ class ClipSignatures:
     rgb: "np.ndarray | torch.Tensor"   # [K, B, 1024]
     flow: "np.ndarray | torch.Tensor"  # [K, B, 1024]
     splits: tuple[int, ...]
+
+    def materialize(self) -> "ClipSignatures":
+        """These signatures as f32 numpy arrays on the host (one download
+        each; gather_signatures downloads a list in one copy)."""
+        def host(x):
+            if isinstance(x, torch.Tensor):
+                return x.detach().float().cpu().numpy()
+            return np.asarray(x, np.float32)
+
+        return ClipSignatures(self.clip_numbers, host(self.rgb), host(self.flow),
+                              self.splits)
 
 
 def gather_signatures(sigs: list[ClipSignatures]) -> list[ClipSignatures]:
@@ -645,9 +754,12 @@ class Extractor:
         """The device half of a batch: upload a host-built payload and run
         extract_step on it. Payloads come from extract_frames, from this
         process's decode thread (extract_video_stream) or from decode worker
-        processes (pipeline/mpstream.py). With a mesh only this rank's
-        clips go up, and the whole batch's signatures come back by an
-        all-gather over "data", whatever the axis's size."""
+        processes (pipeline/mpstream.py); their arrays may be reused as soon
+        as this returns (``put_tree`` packs them into pinned memory first).
+        With a mesh only this rank's clips go up, and the whole batch's
+        signatures come back by an all-gather over "data", whatever the
+        axis's size. On a CUDA device the host waits for the card once a
+        batch, in extract_step."""
         clip_rgb, gray = payload.clip_rgb, payload.gray
         shard = None
         if self.mesh is not None:
@@ -656,8 +768,12 @@ class Extractor:
                 rows = shard.take()
                 clip_rgb = clip_rgb[rows]
                 gray = None if gray is None else gray[rows]
-        frames_dev = torch.from_numpy(clip_rgb).to(self.device)
-        gray_dev = None if gray is None else torch.from_numpy(gray).to(self.device)
+        # both payloads are uint8: one pinned buffer, one copy up, queued
+        # without a host wait (the JAX package's device_put_tree)
+        if gray is None:
+            frames_dev, gray_dev = put_tree(clip_rgb, self.device), None
+        else:
+            frames_dev, gray_dev = put_tree((clip_rgb, gray), self.device)
         rgb, flow = extract_step(self.tsn, frames_dev, self._plan(payload.f_len),
                                  self.cfg, self.warped, self.tvl1, self.dtype,
                                  gray_u8=gray_dev, native_hw=payload.native_hw,

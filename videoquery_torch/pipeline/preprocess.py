@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from videoquery_torch.core.transfer import device_constant
+
 # Caffe/TSN ImageNet means, BGR channel order.
 BGR_MEAN = (104.0, 117.0, 123.0)
 FLOW_MEAN = 128.0
@@ -54,12 +56,14 @@ def _resize_crop(x: torch.Tensor, w: int, h: int, size: int,
     h_in, w_in = x.shape[-3], x.shape[-2]
     x = x.float()
     if h_in != h:
-        ah = torch.from_numpy(_cv2_linear_matrix(h_in, h)[top:top + size]).to(x.device)
+        ah = device_constant(("cv2", h_in, h, top, size),
+                             lambda: _cv2_linear_matrix(h_in, h)[top:top + size], x.device)
         x = torch.einsum("oH,...HWc->...oWc", ah, x)
     else:
         x = x[..., top:top + size, :, :]
     if w_in != w:
-        aw = torch.from_numpy(_cv2_linear_matrix(w_in, w)[left:left + size]).to(x.device)
+        aw = device_constant(("cv2", w_in, w, left, size),
+                             lambda: _cv2_linear_matrix(w_in, w)[left:left + size], x.device)
         x = torch.einsum("oW,...HWc->...Hoc", aw, x)
     else:
         x = x[..., left:left + size, :]
@@ -79,7 +83,7 @@ def preprocess_rgb(frames: torch.Tensor, resize_wh: tuple[int, int] = (340, 256)
         x = frames.float()
     else:
         x = _resize_crop(frames, resize_wh[0], resize_wh[1], crop_size, crop)
-    x = x - torch.tensor(BGR_MEAN, dtype=torch.float32, device=x.device)
+    x = x - device_constant("bgr_mean", lambda: np.asarray(BGR_MEAN, np.float32), x.device)
     return x.to(dtype)
 
 

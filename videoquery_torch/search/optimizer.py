@@ -6,7 +6,9 @@ The reference runs a 40x30 (weight, threshold) grid search where each of the
 2-D parabola fit on the 5-point stencil (hyperparameter.py:78-114). Here the
 grid is one vectorized [W, T] numpy computation in float64 on the host: it
 only covers the REVIEWED clips (M <= a few hundred), so a device round trip
-would cost more than it computes.
+would cost more than it computes. ``grid_losses`` is the same surface in
+f32 on tensors of any device, for similarities that are already there (the
+JAX package's jitted twin).
 
 Loss (SURVEY.md Appendix B, reference hyperparameter.py:52-65):
 
@@ -24,6 +26,9 @@ import logging
 import math
 
 import numpy as np
+import torch
+
+from videoquery_torch.search.scoring import score_weight_grid
 
 log = logging.getLogger(__name__)
 
@@ -37,6 +42,24 @@ class GridResult:
     losses: np.ndarray     # the full [W, T] loss surface
     grid_index: tuple[int, int]
     fine_tuned: bool
+
+
+def grid_losses(
+    avg_sim_reviewed: torch.Tensor,  # f32[2, M] (M possibly padded)
+    labels: torch.Tensor,            # f32[M] in {0, 1}
+    weight_grid: torch.Tensor,       # f32[W]
+    threshold_grid: torch.Tensor,    # f32[T]
+    ballast: "torch.Tensor | float",  # f32 scalar
+    valid: torch.Tensor,             # f32[M] 1 for real entries, 0 for padding
+) -> torch.Tensor:
+    """The full [W, T] loss surface in f32 on the inputs' device; padded
+    reviewed entries (valid 0) count for nothing."""
+    scores = score_weight_grid(avg_sim_reviewed, weight_grid)       # [W, M]
+    d = scores[:, None, :] - threshold_grid[None, :, None]          # [W, T, M]
+    heav = torch.where(d >= 0.0, 1.0, 0.0)                          # H(0) = 1
+    per_match = (heav - labels) * d * (1.0 + labels * ballast)      # [W, T, M]
+    m = valid.sum()
+    return (0.5 * threshold_grid[None, :] + (per_match * valid).sum(dim=-1)) / m
 
 
 def _parabola_vertex(x0: float, x1: float, x2: float,

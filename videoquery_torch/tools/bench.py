@@ -461,8 +461,9 @@ def bench_extraction(args, device, kind: str, latency: bool) -> dict:
     """bench.py's extraction run (bench.py:69-166) on the port's extract_step:
     the production TVL1 and warm plan, seeded random nets of args.splits,
     bf16 networks, frames uploaded once. Throughput: max(3, repeats // 10)
-    windows of args.batches batches queued and synchronised once (the
-    rescue's host sync a batch stays in, as shipped); with ``latency``,
+    windows of args.batches batches queued and synchronised once (each
+    batch's one host wait, the rescue's read-back, stays in, as shipped);
+    with ``latency``,
     also args.repeats batches synchronised one at a time."""
     import dataclasses
 
