@@ -20,8 +20,11 @@ import numpy as np
 import pytest
 import torch
 from _torch_cases import block_params, make_pair, relu_input, texture
+from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from videoquery_torch.core import profiling
+from videoquery_torch.core.profiling import trace_record
 from videoquery_torch.kernels import _launch
 from videoquery_torch.kernels import inception_block as t1
 from videoquery_torch.kernels import query as k1
@@ -140,6 +143,34 @@ def aten_ops(fn) -> list[str]:
     with _AtenOps() as mode:
         fn()
     return mode.ops
+
+
+@pytest.mark.cuda
+def test_k1s_span_reads_the_kernels_time(monkeypatch):
+    """From an idle stream, with the profiler slowing the host, K1's span
+    reads K1's own time and not the host's launch of the targets' split."""
+    needs_card()
+    monkeypatch.setattr(profiling, "_state", profiling._State())
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    feats = torch.randn(2, 3, 65_536, 1024, device=dev, generator=g).to(torch.bfloat16)
+    mask = torch.ones(2, 3, 65_536, dtype=torch.bool, device=dev)
+    targets = torch.randn(8, 2, 3, 1024, device=dev, generator=g)
+    tmask = torch.ones(8, 2, 3, dtype=torch.bool, device=dev)
+    k1.query_k1(feats, mask, targets, tmask, target_dtype=torch.float32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            torch.cuda.synchronize()          # the stream idle when the pass begins
+            k1.query_k1(feats, mask, targets, tmask, target_dtype=torch.float32)
+        torch.cuda.synchronize()
+    span_ms = sorted(s.device_ms for s in trace_record().spans)[2]
+    kernel_ms = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "query" in e.name)[2]
+    # the events' and the profiler's clocks agree to a few %; the split's
+    # launches under the profiler take the host tenths of a millisecond
+    assert 0.95 * kernel_ms <= span_ms <= 1.05 * kernel_ms + 0.05, (span_ms, kernel_ms)
 
 
 @pytest.mark.cuda

@@ -11,12 +11,12 @@ helpers around it (core.transfer, core.profiling) against the JAX package.
 - A bf16 forward after a step uses the new weights (the module's weight
   caches are dropped when a parameter changes).
 - Checkpoints: a bitwise round trip, and resume == continuing, bit for bit.
-- StageTimer, put_tree, local_rows, device_trace.
+- put_tree, local_rows, device_trace (with the spans it writes).
 """
 
 import dataclasses
+import json
 import os
-import time
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +27,7 @@ import torch
 
 from videoquery.nn import bn_inception as jax_bn
 from videoquery.train import trainer as jax_trainer
-from videoquery_torch.core.profiling import StageTimer, device_trace, sync
+from videoquery_torch.core.profiling import device_trace, span
 from videoquery_torch.core.transfer import local_rows, put_tree
 from videoquery_torch.nn.bn_inception import BNInception, dropout_keep, init_params
 from videoquery_torch.train.checkpoint import load_train_state, save_train_state
@@ -175,19 +175,6 @@ def test_checkpoint_round_trip_and_resume_equal_continuing(tmp_path):
             np.testing.assert_array_equal(pb[name][leaf], pa[name][leaf])
 
 
-def test_stage_timer_accumulates():
-    t = StageTimer()
-    with t.stage("a") as h:
-        h.value = torch.ones((4,))
-        time.sleep(0.01)
-    with t.stage("a"):
-        time.sleep(0.01)
-    assert t.counts["a"] == 2
-    assert t.totals["a"] >= 0.02
-    assert "a" in t.report()
-    sync({"x": [torch.zeros(2)]})                 # a no-op on the CPU
-
-
 def test_put_tree_one_buffer_per_dtype(rng):
     tree = {
         "a": {"w": rng.normal(size=(3, 5)).astype(np.float32),
@@ -221,5 +208,11 @@ def test_local_rows():
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     with device_trace(str(tmp_path / "trace")):
-        torch.ones(64).cumsum(0)
+        for _ in range(2):
+            with span("step"):
+                torch.ones(64).cumsum(0)
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    with open(tmp_path / "trace" / "spans.json") as f:
+        spans = json.load(f)
+    assert [s["name"] for s in spans["spans"]] == ["step", "step"]
+    assert spans["totals"]["step"]["calls"] == 2 and spans["counters"] == {}

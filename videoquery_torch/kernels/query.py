@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from videoquery_torch.core.profiling import span
 from videoquery_torch.kernels import _launch
 
 NEG_INF = -1e30  # scores live in [-1, 1]; query_pallas.py NEG_INF
@@ -177,16 +178,24 @@ def _launch_k1(feats, mask, targets, terms: int, tmask, weights, scores: bool):
     vec = int(d % (8 if bf16 else 4) == 0 and feats.data_ptr() % 16 == 0
               and targets.data_ptr() % 16 == 0)
     index = feats.get_device()
-    for q0 in range(0, q, _max_q):
-        q1 = min(q, q0 + _max_q)
-        _launch.launch(
-            _ENTRY, "K1", index, feats.data_ptr(), int(bf16), mask.data_ptr(),
-            targets[q0:q1].data_ptr(), terms, tmask[q0:q1].data_ptr(),
-            weights[q0:q1].data_ptr() if scores else 0, out[q0:q1].data_ptr(),
-            counts[q0:q1].data_ptr() if counts is not None else 0,
-            q1 - q0, s, k, n, d, int(scores), vec)
-        LAUNCHES += 1
+    per_query = (targets, tmask, weights if scores else None, out, counts)
+    # no tensor op between the span's first event and the launch, so its
+    # device ms is K1's time
+    with span("kernels.k1", dev):
+        for q0 in range(0, q, _max_q):
+            t_ptr, m_ptr, w_ptr, o_ptr, c_ptr = (_row(t, q0) for t in per_query)
+            _launch.launch(
+                _ENTRY, "K1", index, feats.data_ptr(), int(bf16), mask.data_ptr(),
+                t_ptr, terms, m_ptr, w_ptr, o_ptr, c_ptr,
+                min(q, q0 + _max_q) - q0, s, k, n, d, int(scores), vec)
+            LAUNCHES += 1
     return out, counts
+
+
+def _row(t, q0: int) -> int:
+    """The address of ``t[q0]`` of a contiguous ``t`` (0 for None), with no
+    tensor op."""
+    return 0 if t is None else t.data_ptr() + q0 * t.stride(0) * t.element_size()
 
 
 def _on_cuda(feats) -> bool:
@@ -215,8 +224,9 @@ def query_k1(feats, mask, targets, tmask, weights=None, *,
     if target_dtype not in _FEAT_DTYPES:
         raise ValueError(f"target_dtype must be float32 or bfloat16, got {target_dtype}")
     if not _on_cuda(feats):
-        return query_k1_reference(feats, mask, targets, tmask, weights,
-                                  target_dtype=target_dtype)
+        with span("kernels.k1"):
+            return query_k1_reference(feats, mask, targets, tmask, weights,
+                                      target_dtype=target_dtype)
     if feats.dtype == torch.float32:
         t, terms = targets.to(target_dtype).float().contiguous(), 1
     elif target_dtype == torch.float32:

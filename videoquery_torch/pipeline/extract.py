@@ -61,6 +61,7 @@ from videoquery_torch.core.device import resolve_device
 from videoquery_torch.core.meshes import (DATA_AXIS, MODEL_AXIS, all_gather_cat,
                                           data_rank_and_size, model_rank_and_size,
                                           pad_to_multiple)
+from videoquery_torch.core.profiling import count, span
 from videoquery_torch.core.transfer import device_constant, put_tree
 from videoquery_torch.index.csvio import write_features_csv
 from videoquery_torch.index.records import FeatureRecord
@@ -209,8 +210,9 @@ class _Rescue:
     def resolve(self):
         """(u, v) with the chosen triggered pairs replaced by their wide
         solve."""
-        if self.done is not None:
-            self.done.synchronize()
+        with span("extract.rescue_wait"):
+            if self.done is not None:
+                self.done.synchronize()
         fired, *chosen = self.host.tolist()
         u, v = self.u, self.v
         if not fired:
@@ -226,6 +228,7 @@ class _Rescue:
                 return u, v
             idx = put_tree(np.asarray(local, np.int64), u.device)
             trig = trig[lo:lo + n]
+        count("extract.rescue_pairs", idx.shape[0])
         wide_fn = tvl1_warped_flow if self.warped else tvl1_flow
         uw, vw = wide_fn(self.i0[idx].contiguous(), self.i1[idx].contiguous(), self.tvl1,
                          max_disp=2 * self.max_disp)
@@ -555,14 +558,15 @@ def prepare_step(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
     (rgb [B, T, crop, crop, 3], flow [B, T, crop, crop, 10]) in ``dtype``;
     embed_step on them gives extract_step's result bit for bit."""
     check_flow_impl(flow_impl)
-    gray, vscale = _flow_gray(frames_u8, cfg, gray_u8, native_hw)
-    if flow_impl == "pallas":
-        flow_q = _pair_flow(gray, plan.pair_idx, cfg.flow_bound, warped, tvl1, vscale,
-                            plan.warm, cfg.flow_warm_camera, warm_advect,
-                            shard)                                  # [B,P,h,w,2]
-    else:
-        flow_q = _clip_flow(gray, cfg.flow_bound, warped, tvl1, flow_impl,
-                            vscale)                                      # [B,F,h,w,2]
+    with span("extract.flow", frames_u8.device):
+        gray, vscale = _flow_gray(frames_u8, cfg, gray_u8, native_hw)
+        if flow_impl == "pallas":
+            flow_q = _pair_flow(gray, plan.pair_idx, cfg.flow_bound, warped, tvl1, vscale,
+                                plan.warm, cfg.flow_warm_camera, warm_advect,
+                                shard)                                  # [B,P,h,w,2]
+        else:
+            flow_q = _clip_flow(gray, cfg.flow_bound, warped, tvl1, flow_impl,
+                                vscale)                                      # [B,F,h,w,2]
     return (_rgb_input(frames_u8, plan, cfg, dtype, gray_u8 is not None),
             _flow_input(flow_q, plan, cfg, dtype))
 
@@ -574,7 +578,11 @@ def embed_step(tsn: TwoStreamTSN, rgb_in: torch.Tensor, flow_in: torch.Tensor,
     prepare_step's inputs, ticks averaged -> (rgb, flow) f32 [K, B, 1024]
     (ensemble_embed: with a mesh, this rank's model shard and the
     all-gather over "model")."""
-    return _stream_embed(tsn.rgb, rgb_in, mesh), _stream_embed(tsn.flow, flow_in, mesh)
+    with span("extract.rgb_net", rgb_in.device):
+        rgb = _stream_embed(tsn.rgb, rgb_in, mesh)
+    with span("extract.flow_net", flow_in.device):
+        flow = _stream_embed(tsn.flow, flow_in, mesh)
+    return rgb, flow
 
 
 @torch.no_grad()
@@ -613,18 +621,23 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
         return embed_step(tsn, *prepare_step(frames_u8, plan, cfg, warped, tvl1, dtype,
                                              gray_u8, native_hw, flow_impl, warm_advect,
                                              shard), mesh)
-    gray, vscale = _flow_gray(frames_u8, cfg, gray_u8, native_hw)
-    b, p = gray.shape[0], plan.pair_idx.shape[0]
-    i0, i1, u, v = _solve_pairs(gray, plan.pair_idx, warped, tvl1, plan.warm,
-                                cfg.flow_warm_camera, warm_advect)
-    rescue = _rescue_fast_motion(i0, i1, u, v, warped, tvl1, shard=shard, wait=False)
-    rgb = _stream_embed(tsn.rgb, _rgb_input(frames_u8, plan, cfg, dtype, gray_u8 is not None),
-                        mesh)
-    u, v = rescue.resolve()                   # the batch's one wait for the card
-    h, w = u.shape[1:]
-    flow_q = _quantize_pairs(u.reshape(b, p, h, w), v.reshape(b, p, h, w), cfg.flow_bound,
-                             vscale)
-    return rgb, _stream_embed(tsn.flow, _flow_input(flow_q, plan, cfg, dtype), mesh)
+    dev = frames_u8.device
+    with span("extract.flow", dev):
+        gray, vscale = _flow_gray(frames_u8, cfg, gray_u8, native_hw)
+        b, p = gray.shape[0], plan.pair_idx.shape[0]
+        i0, i1, u, v = _solve_pairs(gray, plan.pair_idx, warped, tvl1, plan.warm,
+                                    cfg.flow_warm_camera, warm_advect)
+        rescue = _rescue_fast_motion(i0, i1, u, v, warped, tvl1, shard=shard, wait=False)
+    with span("extract.rgb_net", dev):
+        rgb = _stream_embed(tsn.rgb, _rgb_input(frames_u8, plan, cfg, dtype,
+                                                gray_u8 is not None), mesh)
+    with span("extract.flow_net", dev):
+        u, v = rescue.resolve()               # the batch's one wait for the card
+        h, w = u.shape[1:]
+        flow_q = _quantize_pairs(u.reshape(b, p, h, w), v.reshape(b, p, h, w),
+                                 cfg.flow_bound, vscale)
+        flow = _stream_embed(tsn.flow, _flow_input(flow_q, plan, cfg, dtype), mesh)
+    return rgb, flow
 
 
 @dataclasses.dataclass
@@ -768,20 +781,23 @@ class Extractor:
                 rows = shard.take()
                 clip_rgb = clip_rgb[rows]
                 gray = None if gray is None else gray[rows]
-        # both payloads are uint8: one pinned buffer, one copy up, queued
-        # without a host wait (the JAX package's device_put_tree)
-        if gray is None:
-            frames_dev, gray_dev = put_tree(clip_rgb, self.device), None
-        else:
-            frames_dev, gray_dev = put_tree((clip_rgb, gray), self.device)
-        rgb, flow = extract_step(self.tsn, frames_dev, self._plan(payload.f_len),
-                                 self.cfg, self.warped, self.tvl1, self.dtype,
-                                 gray_u8=gray_dev, native_hw=payload.native_hw,
-                                 flow_impl=self.flow_impl, mesh=self.mesh, shard=shard)
-        if shard is not None:
-            b = shard.total_rows
-            rgb = all_gather_cat(rgb, shard.group, dim=1)[:, :b]
-            flow = all_gather_cat(flow, shard.group, dim=1)[:, :b]
+        with span("extract.dispatch"):
+            # both payloads are uint8: one pinned buffer, one copy up, queued
+            # without a host wait (the JAX package's device_put_tree)
+            with span("extract.upload", self.device):
+                if gray is None:
+                    frames_dev, gray_dev = put_tree(clip_rgb, self.device), None
+                else:
+                    frames_dev, gray_dev = put_tree((clip_rgb, gray), self.device)
+            rgb, flow = extract_step(self.tsn, frames_dev, self._plan(payload.f_len),
+                                     self.cfg, self.warped, self.tvl1, self.dtype,
+                                     gray_u8=gray_dev, native_hw=payload.native_hw,
+                                     flow_impl=self.flow_impl, mesh=self.mesh,
+                                     shard=shard)
+            if shard is not None:
+                b = shard.total_rows
+                rgb = all_gather_cat(rgb, shard.group, dim=1)[:, :b]
+                flow = all_gather_cat(flow, shard.group, dim=1)[:, :b]
         return ClipSignatures(payload.nums, rgb, flow, self.tsn.rgb.splits)
 
     def extract_video_stream(self, path: str,

@@ -38,6 +38,7 @@ import torch.distributed as dist
 from videoquery_torch.core.config import HyperParams, compute_eps
 from videoquery_torch.core.meshes import (DATA_AXIS, all_gather_cat,
                                           data_rank_and_size, mesh_device)
+from videoquery_torch.core.profiling import count, span
 from videoquery_torch.index.store import FeatureIndex, ShardSpec
 from videoquery_torch.search.optimizer import GridResult, optimize_weights
 from videoquery_torch.search.scoring import (ensemble_similarities_batched,
@@ -184,23 +185,26 @@ def _band_rows(index: FeatureIndex, group, avg, counts, w: np.ndarray,
     over ``group`` and merged (``merge_banded``), one array a query."""
     dev = avg.device
     spec = index.shard_spec
-    wt = torch.tensor(w, dtype=torch.float32, device=dev)
-    low = None
-    if finalize:
-        low = _local_low(avg, counts, wt, um_pos, um_mask, spec)
-        if spec is not None:
-            dist.all_reduce(low, op=dist.ReduceOp.MIN, group=group)
-    rows = _local_rows(
-        avg, counts, wt,
-        torch.tensor(threshold, dtype=torch.float32, device=dev),
-        torch.tensor(near_miss, dtype=torch.float32, device=dev),
-        keep_pos, low, cap, spec)
-    if spec is None:
-        return rows.cpu().numpy().astype(np.float64)
-    stacked = all_gather_cat(rows[None], group).cpu().numpy().astype(np.float64)
-    owners = spec.locate(keep_pos)[0]
-    return [merge_banded(stacked[:, i], len(index.streams), cap, spec.n_local, owners[i])
-            for i in range(stacked.shape[1])]
+    with span("engine.band_rows"):
+        wt = torch.tensor(w, dtype=torch.float32, device=dev)
+        low = None
+        if finalize:
+            low = _local_low(avg, counts, wt, um_pos, um_mask, spec)
+            if spec is not None:
+                dist.all_reduce(low, op=dist.ReduceOp.MIN, group=group)
+        rows = _local_rows(
+            avg, counts, wt,
+            torch.tensor(threshold, dtype=torch.float32, device=dev),
+            torch.tensor(near_miss, dtype=torch.float32, device=dev),
+            keep_pos, low, cap, spec)
+        # the candidate slots downloaded: cap a query from each shard
+        count("engine.band_slots", avg.shape[0] * cap * (1 if spec is None else spec.world))
+        if spec is None:
+            return rows.cpu().numpy().astype(np.float64)
+        stacked = all_gather_cat(rows[None], group).cpu().numpy().astype(np.float64)
+        owners = spec.locate(keep_pos)[0]
+        return [merge_banded(stacked[:, i], len(index.streams), cap, spec.n_local, owners[i])
+                for i in range(stacked.shape[1])]
 
 
 def _reviewed_rows(index: FeatureIndex, group, rows, pos: np.ndarray) -> np.ndarray:
@@ -360,10 +364,13 @@ class ResidentTable:
     ) -> tuple[HyperParams, GridResult]:
         """SimilarityTable.optimize semantics; the reviewed similarities are
         gathered on device and downloaded alone."""
-        positions, labels = _reviewed_positions(self.index, reviewed_labels)
-        sim = _reviewed_rows(self.index, self.group, self.avg[None],
-                             np.asarray([positions], np.int64))[0]
-        return _round_state(hp, sim, labels)
+        with span("optimizer"):
+            positions, labels = _reviewed_positions(self.index, reviewed_labels)
+            with span("optimizer.fetch"):
+                sim = _reviewed_rows(self.index, self.group, self.avg[None],
+                                     np.asarray([positions], np.int64))[0]
+            with span("optimizer.grid"):
+                return _round_state(hp, sim, labels)
 
     def round_scores(
         self,
@@ -382,6 +389,13 @@ class ResidentTable:
         The candidate download is cap-sized, so caps escalate: a wide band
         retries at the next cap, and a band wider than every cap returns
         None — the caller then falls back to the full-table download."""
+        with span("engine.banded"):
+            return self._round_scores_capped(weights, threshold, near_miss, keep_ids,
+                                             user_match_ids, finalize, caps)
+
+    def _round_scores_capped(self, weights, threshold, near_miss, keep_ids,
+                             user_match_ids, finalize: bool, caps: Sequence[int]
+                             ) -> dict[int, float] | None:
         for cap in caps:
             out = self._round_scores_once(weights, threshold, near_miss,
                                           keep_ids, user_match_ids,
@@ -407,28 +421,30 @@ class ResidentTable:
                        ) -> dict[int, float] | None:
         """Turn one packed row (see _banded_core) into the reduced
         ascending-clip-id float64 scores dict, or None on band overflow."""
-        s = len(self.index.streams)
-        cand_sz = (s + 2) * cap
-        keep_sz = (s + 1) * keep_pos.shape[0]
-        cand = packed[:cand_sz].reshape(s + 2, cap)
-        keep = packed[cand_sz:cand_sz + keep_sz].reshape(s + 1, -1)
-        n_cand = int(round(packed[-1]))
-        if n_cand > cap:
-            return None
-        pos_score: dict[int, float] = {}
-        cvalid = cand[s] > 0.5
-        cpos = np.rint(cand[s + 1]).astype(np.int64)
-        cscores = _scores_f64(cand[:s].astype(np.float32), w)
-        for p, sc in zip(cpos[cvalid].tolist(), cscores[cvalid].tolist()):
-            pos_score[p] = sc
-        kvalid = keep[s, :n_keep] > 0.5
-        kscores = _scores_f64(keep[:s, :n_keep].astype(np.float32), w)
-        for p, ok, sc in zip(keep_pos[:n_keep].tolist(), kvalid.tolist(),
-                             kscores.tolist()):
-            if ok:
+        with span("engine.band_unpack"):
+            s = len(self.index.streams)
+            cand_sz = (s + 2) * cap
+            keep_sz = (s + 1) * keep_pos.shape[0]
+            cand = packed[:cand_sz].reshape(s + 2, cap)
+            keep = packed[cand_sz:cand_sz + keep_sz].reshape(s + 1, -1)
+            n_cand = int(round(packed[-1]))
+            if n_cand > cap:
+                return None
+            count("engine.band_clips", n_cand)
+            pos_score: dict[int, float] = {}
+            cvalid = cand[s] > 0.5
+            cpos = np.rint(cand[s + 1]).astype(np.int64)
+            cscores = _scores_f64(cand[:s].astype(np.float32), w)
+            for p, sc in zip(cpos[cvalid].tolist(), cscores[cvalid].tolist()):
                 pos_score[p] = sc
-        ids = np.asarray(self.index.clip_ids)
-        return {int(ids[p]): pos_score[p] for p in sorted(pos_score)}
+            kvalid = keep[s, :n_keep] > 0.5
+            kscores = _scores_f64(keep[:s, :n_keep].astype(np.float32), w)
+            for p, ok, sc in zip(keep_pos[:n_keep].tolist(), kvalid.tolist(),
+                                 kscores.tolist()):
+                if ok:
+                    pos_score[p] = sc
+            ids = np.asarray(self.index.clip_ids)
+            return {int(ids[p]): pos_score[p] for p in sorted(pos_score)}
 
     def _round_scores_once(self, weights, threshold, near_miss, keep_ids,
                            user_match_ids, finalize: bool, cap: int
@@ -477,18 +493,21 @@ def optimize_many(
         return [t.optimize(labels, hp)
                 for t, labels in zip(tables, labels_list)]
     avg_q, _ = shared
-    per = [_reviewed_positions(t.index, labels)
-           for t, labels in zip(tables, labels_list)]
-    m_bucket = max(_pad_positions(p)[0].shape[0] for p, _ in per)
-    pos_q = np.zeros((len(tables), m_bucket), np.int64)
-    sel = np.zeros(len(tables), np.int64)
-    for qi, (table, (positions, _)) in enumerate(zip(tables, per)):
-        pos_q[qi], _ = _pad_positions(positions, at_least=m_bucket)
-        sel[qi] = table.batch[2]
-    rows = avg_q[torch.from_numpy(sel).to(avg_q.device)]        # [Q, S, N]
-    sims = _reviewed_rows(tables[0].index, tables[0].group, rows, pos_q)  # [Q, S, M]
-    return [_round_state(hp, sims[qi][:, :len(positions)], lab)
-            for qi, (positions, lab) in enumerate(per)]
+    with span("optimizer"):
+        per = [_reviewed_positions(t.index, labels)
+               for t, labels in zip(tables, labels_list)]
+        m_bucket = max(_pad_positions(p)[0].shape[0] for p, _ in per)
+        pos_q = np.zeros((len(tables), m_bucket), np.int64)
+        sel = np.zeros(len(tables), np.int64)
+        for qi, (table, (positions, _)) in enumerate(zip(tables, per)):
+            pos_q[qi], _ = _pad_positions(positions, at_least=m_bucket)
+            sel[qi] = table.batch[2]
+        with span("optimizer.fetch"):
+            rows = avg_q[torch.from_numpy(sel).to(avg_q.device)]        # [Q, S, N]
+            sims = _reviewed_rows(tables[0].index, tables[0].group, rows, pos_q)  # [Q, S, M]
+        with span("optimizer.grid"):
+            return [_round_state(hp, sims[qi][:, :len(positions)], lab)
+                    for qi, (positions, lab) in enumerate(per)]
 
 
 def round_scores_many(
@@ -513,42 +532,42 @@ def round_scores_many(
                            finalize=r["finalize"], caps=caps)
             for t, r in zip(tables, rounds)
         ]
-    results: list = [None] * len(tables)
-    avg_q, counts_q = shared
-    dev = avg_q.device
-    by_flavor: dict[bool, list[int]] = {}
-    for i, r in enumerate(rounds):
-        by_flavor.setdefault(bool(r["finalize"]), []).append(i)
-    for finalize, idxs in by_flavor.items():
-        args = [tables[i]._banded_args(
-            rounds[i]["weights"], rounds[i]["keep_ids"],
-            rounds[i]["user_match_ids"]) for i in idxs]
-        keep_bucket = max(a[1].shape[0] for a in args)
-        um_bucket = max(a[3].shape[0] for a in args)
-        args = [tables[i]._banded_args(
-            rounds[i]["weights"], rounds[i]["keep_ids"],
-            rounds[i]["user_match_ids"], keep_bucket, um_bucket)
-            for i in idxs]
-        sel = torch.tensor([tables[i].batch[2] for i in idxs], device=dev)
-        packed = _band_rows(
-            tables[0].index, tables[0].group, avg_q[sel], counts_q[sel],
-            np.stack([a[0] for a in args]),
-            [rounds[i]["threshold"] for i in idxs],
-            [rounds[i]["near_miss"] for i in idxs],
-            np.stack([a[1] for a in args]), np.stack([a[3] for a in args]),
-            np.stack([a[4] for a in args]), finalize, caps[0])
-        for row, (i, (w, keep_pos, n_keep, _up, _um)) in enumerate(
-                zip(idxs, args)):
-            out = tables[i]._unpack_banded(packed[row], w, keep_pos, n_keep,
-                                           caps[0])
-            if out is None and len(caps) > 1:  # overflow: solo escalation
-                r = rounds[i]
-                out = tables[i].round_scores(
-                    r["weights"], r["threshold"], r["near_miss"],
-                    r["keep_ids"], r["user_match_ids"],
-                    finalize=r["finalize"], caps=caps[1:])
-            results[i] = out
-    return results
+    with span("engine.banded"):
+        results: list = [None] * len(tables)
+        avg_q, counts_q = shared
+        dev = avg_q.device
+        by_flavor: dict[bool, list[int]] = {}
+        for i, r in enumerate(rounds):
+            by_flavor.setdefault(bool(r["finalize"]), []).append(i)
+        for finalize, idxs in by_flavor.items():
+            args = [tables[i]._banded_args(
+                rounds[i]["weights"], rounds[i]["keep_ids"],
+                rounds[i]["user_match_ids"]) for i in idxs]
+            keep_bucket = max(a[1].shape[0] for a in args)
+            um_bucket = max(a[3].shape[0] for a in args)
+            args = [tables[i]._banded_args(
+                rounds[i]["weights"], rounds[i]["keep_ids"],
+                rounds[i]["user_match_ids"], keep_bucket, um_bucket)
+                for i in idxs]
+            sel = torch.tensor([tables[i].batch[2] for i in idxs], device=dev)
+            packed = _band_rows(
+                tables[0].index, tables[0].group, avg_q[sel], counts_q[sel],
+                np.stack([a[0] for a in args]),
+                [rounds[i]["threshold"] for i in idxs],
+                [rounds[i]["near_miss"] for i in idxs],
+                np.stack([a[1] for a in args]), np.stack([a[3] for a in args]),
+                np.stack([a[4] for a in args]), finalize, caps[0])
+            for row, (i, (w, keep_pos, n_keep, _up, _um)) in enumerate(
+                    zip(idxs, args)):
+                out = tables[i]._unpack_banded(packed[row], w, keep_pos, n_keep,
+                                               caps[0])
+                if out is None and len(caps) > 1:  # overflow: solo escalation
+                    r = rounds[i]
+                    out = tables[i]._round_scores_capped(
+                        r["weights"], r["threshold"], r["near_miss"],
+                        r["keep_ids"], r["user_match_ids"], r["finalize"], caps[1:])
+                results[i] = out
+        return results
 
 
 class SearchEngine:
@@ -624,8 +643,9 @@ class SearchEngine:
         if q == 0:
             return []
         idx = self.index
-        avg, counts = ensemble_similarities_batched(*pack_targets(idx, targets),
-                                                    idx.feats, idx.mask)
+        with span("engine.similarity"):
+            avg, counts = ensemble_similarities_batched(*pack_targets(idx, targets),
+                                                        idx.feats, idx.mask)
         if resident:
             return [ResidentTable(idx, avg[qi], counts[qi],
                                   batch=(avg, counts, qi), group=self.group)
