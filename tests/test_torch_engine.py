@@ -22,7 +22,7 @@ from videoquery.search.engine import SearchEngine as JaxEngine
 from videoquery_torch.core.config import HyperParams, compute_eps
 from videoquery_torch.index.records import FeatureRecord
 from videoquery_torch.index.store import FeatureIndex
-from videoquery_torch.search.engine import (SearchEngine, optimize_many,
+from videoquery_torch.search.engine import (SearchEngine, _banded_core, optimize_many,
                                             round_scores_many)
 from videoquery_torch.search.selection import (finalize_near_miss,
                                                lowest_scoring_user_match,
@@ -189,6 +189,60 @@ def test_group_cap_overflow_escalates_then_falls_through(world):
     back = tables[0].to_table()
     np.testing.assert_array_equal(back.avg_sim, full.avg_sim)
     np.testing.assert_array_equal(back.counts, full.counts)
+
+
+def _packed_row(resident, weights, threshold, keep_ids, cap):
+    """One packed row of _banded_core for a revise round with near miss 0
+    (the band: scores >= threshold), as the card downloads it (f32)."""
+    w, keep_pos, n_keep, _, _ = resident._banded_args(weights, keep_ids, [])
+    f32 = dict(dtype=torch.float32)
+    row = _banded_core(resident.avg[None], resident.counts[None],
+                       torch.tensor(w[None], **f32), torch.tensor([threshold], **f32),
+                       torch.zeros(1, **f32), compute_eps(),
+                       torch.from_numpy(keep_pos[None]), None, cap)[0].numpy()
+    return row, w, keep_pos, n_keep
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["kept_in_band", "empty_band", "band_fills_cap",
+                                  "band_overflows_cap"])
+def test_band_decode_is_the_full_tables_scores(world, case, dtype):
+    """_unpack_banded reads only the live prefix of a packed row: its dict is
+    the full table's float64 scores of the band and the valid kept clips,
+    the same keys in the same ascending order, each value equal; a band one
+    wider than the cap gives None. The row as downloaded (f32) and widened
+    to f64 (merge_banded's rows) decode alike."""
+    _, index, targets, ids = world
+    engine = SearchEngine(index)
+    weights = {STREAMS[0]: 1.0, STREAMS[1]: 0.7}
+    scores = engine.compute_similarities(targets[1]).scores(weights)
+    resident = engine.compute_similarities_resident(targets[1])
+    ranked = sorted(scores, key=scores.get, reverse=True)
+    best = sorted(scores.values(), reverse=True)
+    # a band of k clips, its bound in the widest gap near 40 so f32 and the
+    # device margin cannot move a clip across it
+    k = max(range(36, 46), key=lambda j: best[j - 1] - best[j])
+    assert best[k - 1] - best[k] > 1e-4
+    threshold, cap, band = (best[k - 1] + best[k]) / 2, 64, set(ranked[:k])
+    invalid = 53                      # its rgb stream is missing (i % 23 == 5)
+    assert invalid in ids and invalid not in scores
+    keep = [ranked[3], ranked[k + 5], invalid]       # in the band, out, invalid
+    if case == "empty_band":
+        threshold, band = 2.0, set()
+    elif case == "band_fills_cap":
+        cap = k
+    elif case == "band_overflows_cap":
+        cap = k - 1
+    row, w, keep_pos, n_keep = _packed_row(resident, weights, threshold, keep, cap)
+    assert int(row[-1]) == len(band)
+    got = resident._unpack_banded(row.astype(dtype), w, keep_pos, n_keep, cap)
+    if case == "band_overflows_cap":
+        assert got is None
+        return
+    want = {c: v for c, v in scores.items() if c in band or c in keep}
+    assert list(got) == list(want) and len(want) == len(band | set(keep[:2]))
+    for c, v in want.items():
+        assert got[c] == v
 
 
 def test_batched_similarity_bit_identical_to_solo(world):

@@ -31,6 +31,7 @@ import os
 import random
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -45,8 +46,9 @@ from videoquery.index.store import FeatureIndex as JaxIndex
 from videoquery.search.engine import SearchEngine as JaxEngine
 from videoquery_torch.core.config import HyperParams, compute_eps
 from videoquery_torch.core.meshes import initialize_multihost, make_mesh
-from videoquery_torch.search.engine import (SearchEngine, merge_banded, optimize_many,
-                                            round_scores_many)
+from videoquery_torch.index.store import ShardSpec
+from videoquery_torch.search.engine import (ResidentTable, SearchEngine, _local_rows,
+                                            merge_banded, optimize_many, round_scores_many)
 from videoquery_torch.search.selection import (finalize_near_miss,
                                                lowest_scoring_user_match,
                                                select_clips_to_review)
@@ -293,6 +295,47 @@ def test_merge_keeps_rank_order_and_sums_the_band():
     np.testing.assert_array_equal(cand[1, :3], [1, 1, 1])
     np.testing.assert_array_equal(out[(s + 2) * cap:-1].reshape(s + 1, 2), [[0.1, 0.4], [1, 1]])
     assert out[-1] == 3
+
+
+class _Ids:
+    """Clip ids of an index too long to hold: id = 10 * position + 3."""
+
+    def __getitem__(self, pos):
+        return np.asarray(pos, np.int64) * 10 + 3
+
+
+def test_merged_row_decodes_positions_past_2_24():
+    """Two shards of 2^24 + 1 positions each: rank 1's global positions pass
+    2^24, where f32 holds only even integers. The merged f64 row decodes to
+    the exact positions, with the float64 scores of the shards' similarities;
+    a kept clip on each rank and an invalid one on rank 1."""
+    s, n, cap, n_local = 2, 12, 32, 2**24 + 1
+    rng = np.random.default_rng(5)
+    avg = torch.from_numpy(rng.uniform(0.3, 1.0, (2, s, n)).astype(np.float32))
+    counts = torch.ones(2, s, n, dtype=torch.int32)
+    counts[1, 0, 3] = 0                                   # global n_local + 3
+    w = np.asarray([1.0, 0.7])
+    keep_pos = np.asarray([2, n_local + 5, n_local + 3, 0])   # padded to 4
+    f32 = dict(dtype=torch.float32)
+    rows = np.stack([
+        _local_rows(avg[r][None], counts[r][None], torch.tensor(w[None], **f32),
+                    torch.tensor([-1.0], **f32), torch.zeros(1, **f32),  # every valid clip
+                    keep_pos[None], None, cap, ShardSpec(r, 2, n_local))[0].numpy()
+        for r in range(2)]).astype(np.float64)
+    merged = merge_banded(rows, s, cap, n_local, ShardSpec(0, 2, n_local).locate(keep_pos)[0])
+    index = SimpleNamespace(streams=("rgb", "flow"), shard_spec=None, clip_ids=_Ids())
+    got = ResidentTable(index, None, None)._unpack_banded(merged, w, keep_pos, 3, cap)
+
+    a = torch.cat([avg[0], avg[1]], dim=1).numpy().astype(np.float64)  # [S, 2n]
+    dev = w[:, None] * (1.0 - a)
+    sc = 1.0 - np.sqrt((dev * dev).sum(axis=0) / (w * w).sum())
+    pos = np.concatenate([np.arange(n), n_local + np.arange(n)])
+    valid = (torch.cat([counts[0], counts[1]], dim=1) > 0).all(dim=0).numpy()
+    want = dict(zip((10 * pos[valid] + 3).tolist(), sc[valid].tolist()))
+    assert any(float(np.float32(p)) != p for p in pos[valid])
+    assert list(got) == list(want) and len(want) == 2 * n - 1
+    for c, v in want.items():
+        assert got[c] == v
 
 
 # -- SearchEngine(index, mesh=...) on a Gloo world of one rank -----------------

@@ -179,10 +179,12 @@ def select_owned(stacked: np.ndarray, owner: np.ndarray) -> np.ndarray:
 def _band_rows(index: FeatureIndex, group, avg, counts, w: np.ndarray,
                threshold, near_miss, keep_pos: np.ndarray, um_pos: np.ndarray,
                um_mask: np.ndarray, finalize: bool, cap: int) -> Sequence[np.ndarray]:
-    """The packed rows (f64[L] each, global positions) of B queries over the
-    engine's index; on a shard, the rows of the whole index on every rank:
-    the user matches' minimum all-reduced, the shards' rows all-gathered
-    over ``group`` and merged (``merge_banded``), one array a query."""
+    """The packed rows (global positions) of B queries over the engine's
+    index: f32[B, L] as ``_banded_core`` wrote them, whose positions are
+    exact below 2^24; on a shard, the rows of the whole index on every rank,
+    f64[L] each: the user matches' minimum all-reduced, the shards' rows
+    all-gathered over ``group`` and merged (``merge_banded``), whose
+    ``rank * n_local`` offsets need f64."""
     dev = avg.device
     spec = index.shard_spec
     with span("engine.band_rows"):
@@ -200,7 +202,7 @@ def _band_rows(index: FeatureIndex, group, avg, counts, w: np.ndarray,
         # the candidate slots downloaded: cap a query from each shard
         count("engine.band_slots", avg.shape[0] * cap * (1 if spec is None else spec.world))
         if spec is None:
-            return rows.cpu().numpy().astype(np.float64)
+            return rows.cpu().numpy()
         stacked = all_gather_cat(rows[None], group).cpu().numpy().astype(np.float64)
         owners = spec.locate(keep_pos)[0]
         return [merge_banded(stacked[:, i], len(index.streams), cap, spec.n_local, owners[i])
@@ -419,32 +421,28 @@ class ResidentTable:
     def _unpack_banded(self, packed: np.ndarray, w: np.ndarray,
                        keep_pos: np.ndarray, n_keep: int, cap: int
                        ) -> dict[int, float] | None:
-        """Turn one packed row (see _banded_core) into the reduced
-        ascending-clip-id float64 scores dict, or None on band overflow."""
+        """Turn one packed row (see _banded_core; f32, or f64 from
+        merge_banded) into the reduced ascending-clip-id float64 scores dict,
+        or None on band overflow. Only the live prefix is read: the in-band
+        positions fill the first n_cand slots, ascending."""
         with span("engine.band_unpack"):
             s = len(self.index.streams)
-            cand_sz = (s + 2) * cap
-            keep_sz = (s + 1) * keep_pos.shape[0]
-            cand = packed[:cand_sz].reshape(s + 2, cap)
-            keep = packed[cand_sz:cand_sz + keep_sz].reshape(s + 1, -1)
-            n_cand = int(round(packed[-1]))
+            n_cand = int(packed[-1])
             if n_cand > cap:
                 return None
             count("engine.band_clips", n_cand)
-            pos_score: dict[int, float] = {}
-            cvalid = cand[s] > 0.5
-            cpos = np.rint(cand[s + 1]).astype(np.int64)
-            cscores = _scores_f64(cand[:s].astype(np.float32), w)
-            for p, sc in zip(cpos[cvalid].tolist(), cscores[cvalid].tolist()):
-                pos_score[p] = sc
-            kvalid = keep[s, :n_keep] > 0.5
-            kscores = _scores_f64(keep[:s, :n_keep].astype(np.float32), w)
-            for p, ok, sc in zip(keep_pos[:n_keep].tolist(), kvalid.tolist(),
-                                 kscores.tolist()):
-                if ok:
-                    pos_score[p] = sc
-            ids = np.asarray(self.index.clip_ids)
-            return {int(ids[p]): pos_score[p] for p in sorted(pos_score)}
+            cand_sz = (s + 2) * cap
+            cand = packed[:cand_sz].reshape(s + 2, cap)[:, :n_cand]
+            keep_sz = (s + 1) * keep_pos.shape[0]
+            keep = packed[cand_sz:cand_sz + keep_sz].reshape(s + 1, -1)[:, :n_keep]
+            cvalid, kvalid = cand[s] > 0.5, keep[s] > 0.5
+            pos = np.concatenate([cand[s + 1, cvalid].astype(np.int64),
+                                  keep_pos[:n_keep][kvalid]])
+            avg = np.concatenate([cand[:s, cvalid], keep[:s, kvalid]], axis=1)
+            scores = _scores_f64(avg.astype(np.float32, copy=False), w)
+            # a kept clip in the band comes twice, with the same bits
+            pos, first = np.unique(pos, return_index=True)
+            return dict(zip(self.index.clip_ids[pos].tolist(), scores[first].tolist()))
 
     def _round_scores_once(self, weights, threshold, near_miss, keep_ids,
                            user_match_ids, finalize: bool, cap: int
