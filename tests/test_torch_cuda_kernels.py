@@ -751,3 +751,34 @@ def test_a_dispatched_batch_uploads_once_and_waits_once(request, bench_batches, 
         assert copies.get("Memcpy DtoH (Device -> Pinned)") == 1, copies
         assert copies.get("Memcpy HtoD (Pinned -> Device)", 0) <= 1, copies
         assert not [name for name in copies if "Pageable" in name], copies
+
+
+# -- I3D's convolutions and pools -----------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [3, 2])
+def test_i3d_on_the_card_against_the_reference(channels):
+    """The card's route through I3D (the fused cuDNN conv + bias + ReLU, the
+    space-to-depth stem, the NHWC pools) against the plain float32 reference
+    on the card, with non-zero biases: float32 at rtol 1e-4 / atol 1e-5
+    (another order of sums), bfloat16 under tests/test_torch_i3d.py's 2%
+    mean-relative bound."""
+    needs_card()
+    from videoquery_torch.nn import i3d
+    from videoquery_torch.testing import i3d_reference
+
+    rng = np.random.default_rng(channels)
+    params = i3d.init_params(5, channels)
+    for leaf in params.values():
+        leaf["b"] = (rng.normal(size=leaf["b"].shape) * 0.01).astype(np.float32)
+    dev = torch.device("cuda", 0)
+    net = i3d.InceptionI3d(params).to(dev)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 16, 64, 64, channels)).astype(np.float32)).to(dev)
+    want = i3d_reference.forward(params, x)
+    got = net(x)
+    for key in ("global_pool", "logits"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-4, atol=1e-5)
+    low = net(x.bfloat16())["global_pool"]
+    want = want["global_pool"]
+    assert float((low - want).abs().mean() / want.abs().mean()) < 0.02
+

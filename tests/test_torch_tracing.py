@@ -293,7 +293,8 @@ def test_a_dispatched_batch_records_the_extraction_spans_in_order(tsn, kind):
                          ("extract.rescue_wait", by["extract.flow_net"])):
         assert by[name].parent == parent.id
     # the moving batch fires the rescue: a quarter of its 2 x 9 pairs, rounded
-    assert rec.counters == ({"extract.rescue_pairs": 4} if kind == "moving" else {})
+    rescued = {"extract.rescue_pairs": 4} if kind == "moving" else {}
+    assert rec.counters == dict(rescued, **{"extract.flow_pairs": 18})
 
 
 def test_the_step_decided_at_once_records_the_flow_and_both_nets(tsn):
@@ -305,4 +306,4 @@ def test_the_step_decided_at_once_records_the_flow_and_both_nets(tsn):
     # the input prep between the halves is in no span: it is neither net
     assert names(rec) == ["extract.flow", "extract.rescue_wait", "extract.rgb_net",
                           "extract.flow_net"]
-    assert rec.counters == {"extract.rescue_pairs": 4}
+    assert rec.counters == {"extract.rescue_pairs": 4, "extract.flow_pairs": 18}

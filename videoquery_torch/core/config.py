@@ -144,6 +144,9 @@ class SearchConfig:
     big_round_threshold: int = 50_000
 
 
+EXTRACTION_ARCHS = ("bn_inception", "i3d")
+
+
 @dataclasses.dataclass(frozen=True)
 class ExtractionConfig:
     """Two-stream extraction pipeline configuration (reference
@@ -184,8 +187,18 @@ class ExtractionConfig:
     # streaming decode: the producer thread runs at most this many clip
     # batches ahead of the device (2 at least: one in flight, one decoding)
     stream_window_batches: int = 3
+    # the networks: "bn_inception" (TSN: num_ticks rgb ticks and flow stacks
+    # of flow_stack_depth pairs a clip) or "i3d" (dense: every frame of the
+    # clip as one rgb volume, every consecutive pair as one flow volume;
+    # num_ticks and flow_stack_depth unused)
+    arch: str = "bn_inception"
 
     def __post_init__(self):
+        if self.arch not in EXTRACTION_ARCHS:
+            raise ValueError(f"arch must be one of {EXTRACTION_ARCHS}; got {self.arch!r}")
+        if self.arch == "i3d" and self.host_gray:
+            raise ValueError("the compact uploads (host_gray) carry the tick frames "
+                             "only; arch 'i3d' reads every frame")
         if self.flow_warm_camera not in ("key", "own", "init"):
             raise ValueError(
                 f"flow_warm_camera must be 'key', 'own' or 'init'; "

@@ -160,6 +160,9 @@ class BNInception(nn.Module):
     float32 {'global_pool': [B, 1024]} and, with the head, 'fc-action'
     [B, num_classes]."""
 
+    # embed takes images [N, H, W, C] (a tick each), not a clip's volume
+    temporal = False
+
     def __init__(self, params: dict[str, dict[str, np.ndarray]]):
         super().__init__()
         in_channels = params["conv1/7x7_s2"]["w"].shape[2]

@@ -15,6 +15,13 @@ device (the pair path, ``flow_impl="pallas"``, the default everywhere):
          bfloat16 activations, f32 accumulation: ``dtype``)
       -> {stream: [K, B, 1024]} f32 signatures (ticks averaged)
 
+With ``ExtractionConfig(arch="i3d")`` the same step runs I3D (``nn/i3d.py``)
+on dense clips: the rgb volume is every frame of the clip, the flow volume
+every consecutive pair's plain (unwarped) TV-L1 (u, v) on K2, warm plan and
+rescue as above, truncated and scaled to [-1, 1] without quantization; each
+stream's one member embeds the whole volume, and its CSV tree carries I3D's
+model directory and weights name.
+
 and reference-format CSVs from them (calcSig_wOF.py:116-134). On a CUDA
 device the host waits for the card once a batch, to read the rescue's
 choice back after the rgb stream's networks are queued (extract_step; the
@@ -80,9 +87,11 @@ from videoquery_torch.pipeline.payload import (BatchPayload, build_payload,
                                                flow_grid_shape, plan_groups,
                                                stream_payloads)
 from videoquery_torch.pipeline.preprocess import (preprocess_flow,
+                                                  preprocess_flow_i3d,
                                                   preprocess_rgb,
-                                                  quantize_flow)
-from videoquery_torch.pipeline.sampling import (flow_pair_plan,
+                                                  preprocess_rgb_i3d,
+                                                  quantize_flow, scale_flow)
+from videoquery_torch.pipeline.sampling import (dense_plan, flow_pair_plan,
                                                 flow_stack_index_matrix,
                                                 flow_warm_plan, frame_ticks)
 
@@ -284,6 +293,7 @@ def _solve_pairs(gray: torch.Tensor, pair_idx: torch.Tensor, warped: bool,
     i0 = gray[:, pair_idx]
     i1 = gray[:, pair_idx + 1]
     p = pair_idx.shape[0]
+    count("extract.flow_pairs", b * p)
     i0f = i0.reshape(b * p, h, w)
     i1f = i1.reshape(b * p, h, w)
     flow_fn = tvl1_warped_flow if warped else tvl1_flow
@@ -443,9 +453,10 @@ def _flow_gray_grid(frames_u8: torch.Tensor, flow_res_div: int,
 class StepPlan:
     """Device index arrays of one clip length (cached per length)."""
 
-    tick_idx: torch.Tensor       # [T] 0-based rgb tick frames
-    stack_pos: torch.Tensor      # [T, D] positions into pair_idx ("pallas") or
-                                 # flow frames (flow_stack_index_matrix, "xla")
+    tick_idx: torch.Tensor       # [T] 0-based rgb tick frames (I3D: every frame)
+    stack_pos: torch.Tensor | None  # [T, D] positions into pair_idx ("pallas") or
+                                 # flow frames (flow_stack_index_matrix, "xla");
+                                 # None for I3D, whose flow volume is every pair
     pair_idx: torch.Tensor | None  # [P] flow pairs the stacks use ("pallas")
     warm: tuple | None           # (key_pos, warm_pos, warm_src) or None
 
@@ -455,31 +466,46 @@ def step_plan(f_len: int, cfg: ExtractionConfig, flow_impl: str, device) -> Step
     ticks, and for "pallas" the pairs the flow stacks use, their positions
     and the warm plan (cfg.flow_warm_group > 1); for "xla" the stacks'
     flow frames (flow_stack_index_matrix: pair_idx[stack_pos] clamped,
-    the same flow)."""
+    the same flow). For I3D (cfg.arch) the dense plan: every frame and
+    every consecutive pair (sampling.dense_plan), "pallas" only."""
     check_flow_impl(flow_impl)
 
     def dev(a):
         return put_tree(np.asarray(a, np.int64), device)
 
-    ticks = dev(frame_ticks(f_len, cfg.num_ticks, 1) - 1)
-    if flow_impl == "xla":
-        return StepPlan(ticks, dev(flow_stack_index_matrix(
-            f_len, cfg.num_ticks, cfg.flow_stack_depth)), None, None)
-    pair_idx, stack_pos = flow_pair_plan(f_len, cfg.num_ticks, cfg.flow_stack_depth)
+    if cfg.arch == "i3d":
+        if flow_impl != "pallas":
+            raise ValueError("I3D's dense flow runs on the port's kernels (flow_impl='pallas')")
+        frames, pair_idx = dense_plan(f_len)
+        ticks, stack_pos = dev(frames), None
+    else:
+        ticks = dev(frame_ticks(f_len, cfg.num_ticks, 1) - 1)
+        if flow_impl == "xla":
+            return StepPlan(ticks, dev(flow_stack_index_matrix(
+                f_len, cfg.num_ticks, cfg.flow_stack_depth)), None, None)
+        pair_idx, stack_pos = flow_pair_plan(f_len, cfg.num_ticks, cfg.flow_stack_depth)
+        stack_pos = dev(stack_pos)
     warm = None
     if cfg.flow_warm_group > 1:
         key_pos, warm_pos, warm_src = flow_warm_plan(pair_idx, cfg.flow_warm_group)
         if warm_pos.size:
             warm = (dev(key_pos), dev(warm_pos), dev(warm_src))
-    return StepPlan(ticks, dev(stack_pos), dev(pair_idx), warm)
+    return StepPlan(ticks, stack_pos, dev(pair_idx), warm)
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# architecture -> the CSV tree's (model directory, weights name) templates
+CSV_NAMES = {
+    "bn_inception": ("UCF101_split{split}", "ucf101_split{split}_tsn_{stream}_bn_inception.npz"),
+    "i3d": ("Kinetics400_I3D_split{split}", "kinetics400_i3d_{stream}.npz"),
+}
+
 
 def ensemble_embed(stream: StreamEnsemble, x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """[K, N, 1024] embeddings of a stream's K-split ensemble on NHWC x
-    [N, H, W, C]. With a mesh this rank runs only its model shard of the
+    """[K, N, 1024] embeddings of a stream's K-split ensemble on x: images
+    [N, H, W, C] for BN-Inception members, volumes [N, T, H, W, C] for
+    I3D's. With a mesh this rank runs only its model shard of the
     splits (``StreamEnsemble.shard``) and an all-gather over "model"
     assembles the K in split order, whatever the axis's size: the JAX
     package's ``_ensemble_embed`` (shard_map, out_specs P(MODEL, DATA)) on
@@ -513,7 +539,11 @@ def _rgb_input(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
                dtype: str, compact: bool) -> torch.Tensor:
     """The rgb net's input [B, T, crop, crop, 3] in ``dtype``: the tick
     frames (gathered here, or by the host with the compact upload, then
-    maybe resized, cropped and packed as I420 there too), preprocessed."""
+    maybe resized, cropped and packed as I420 there too), preprocessed.
+    For I3D the volume of every frame, in RGB order in [-1, 1]."""
+    if cfg.arch == "i3d":
+        return preprocess_rgb_i3d(frames_u8[:, plan.tick_idx], cfg.frame_resize,
+                                  cfg.crop_size, dtype=DTYPES[dtype])
     host_cropped = compact and cfg.host_crop
     if compact:
         rgb_ticks = frames_u8          # the host gathered the tick frames
@@ -525,10 +555,27 @@ def _rgb_input(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
                           precropped=host_cropped)
 
 
+def _flow_field(u: torch.Tensor, v: torch.Tensor, cfg: ExtractionConfig,
+                value_scale: tuple[float, float]) -> torch.Tensor:
+    """The pairs' flow (u, v) f32 [B, P, h, w] in flow-grid pixels as the
+    flow net reads it, [B, P, h, w, 2] in native pixels (value_scale (sx,
+    sy)): u8 quantized for BN-Inception, truncated and scaled to [-1, 1]
+    (f32) for I3D."""
+    if cfg.arch == "i3d":
+        uv = torch.stack([u * value_scale[0], v * value_scale[1]], dim=-1)
+        return scale_flow(uv, cfg.flow_bound)
+    return _quantize_pairs(u, v, cfg.flow_bound, value_scale)
+
+
 def _flow_input(flow_q: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
                 dtype: str) -> torch.Tensor:
     """The flow net's input [B, T, crop, crop, 2D] in ``dtype``: the tick
-    stacks gathered from the quantized flow, x/y interleaved, preprocessed."""
+    stacks gathered from the quantized flow, x/y interleaved, preprocessed.
+    For I3D the volume of every pair's scaled flow (_flow_field), [B, P,
+    crop, crop, 2]."""
+    if cfg.arch == "i3d":
+        return preprocess_flow_i3d(flow_q, cfg.frame_resize, cfg.crop_size,
+                                   dtype=DTYPES[dtype])
     b = flow_q.shape[0]
     t, d = plan.stack_pos.shape
     h, w = flow_q.shape[2:4]
@@ -539,8 +586,11 @@ def _flow_input(flow_q: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
 
 
 def _stream_embed(stream: StreamEnsemble, x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """A stream's ensemble on its input [B, T, H, W, C], ticks averaged ->
-    f32 [K, B, 1024]."""
+    """A stream's ensemble on its input [B, T, H, W, C] -> f32 [K, B, 1024]:
+    each tick embedded and the ticks averaged, or (I3D: ``temporal``) each
+    clip's volume embedded whole."""
+    if stream.temporal:
+        return ensemble_embed(stream, x, mesh)
     b, t = x.shape[:2]
     emb = ensemble_embed(stream, x.reshape((b * t,) + x.shape[2:]), mesh)
     return emb.reshape(emb.shape[0], b, t, -1).mean(dim=2)
@@ -555,12 +605,17 @@ def prepare_step(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
     """The first half of extract_step, everything before the networks:
     gray at the flow grid, the flow (the rescue decided at once), the tick
     and stack gathers and the preprocess. Returns the networks' NHWC inputs
-    (rgb [B, T, crop, crop, 3], flow [B, T, crop, crop, 10]) in ``dtype``;
+    (rgb [B, T, crop, crop, 3], flow [B, T, crop, crop, 10]; I3D's volumes
+    [B, F, crop, crop, 3] and [B, F - 1, crop, crop, 2]) in ``dtype``;
     embed_step on them gives extract_step's result bit for bit."""
     check_flow_impl(flow_impl)
     with span("extract.flow", frames_u8.device):
         gray, vscale = _flow_gray(frames_u8, cfg, gray_u8, native_hw)
-        if flow_impl == "pallas":
+        if cfg.arch == "i3d":
+            u, v = _pair_flow_uv(gray, plan.pair_idx, warped, tvl1, plan.warm,
+                                 cfg.flow_warm_camera, warm_advect, shard)
+            flow_q = _flow_field(u, v, cfg, vscale)                    # [B,P,h,w,2]
+        elif flow_impl == "pallas":
             flow_q = _pair_flow(gray, plan.pair_idx, cfg.flow_bound, warped, tvl1, vscale,
                                 plan.warm, cfg.flow_warm_camera, warm_advect,
                                 shard)                                  # [B,P,h,w,2]
@@ -634,8 +689,7 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
     with span("extract.flow_net", dev):
         u, v = rescue.resolve()               # the batch's one wait for the card
         h, w = u.shape[1:]
-        flow_q = _quantize_pairs(u.reshape(b, p, h, w), v.reshape(b, p, h, w),
-                                 cfg.flow_bound, vscale)
+        flow_q = _flow_field(u.reshape(b, p, h, w), v.reshape(b, p, h, w), cfg, vscale)
         flow = _stream_embed(tsn.flow, _flow_input(flow_q, plan, cfg, dtype), mesh)
     return rgb, flow
 
@@ -697,13 +751,19 @@ class Extractor:
     (a tail clip) runs, padded with its last clip (ROADMAP §3)."""
 
     def __init__(self, tsn: TwoStreamTSN, cfg: ExtractionConfig | None = None,
-                 warped: bool = True, tvl1: TVL1Params | None = None, device=None,
+                 warped: bool | None = None, tvl1: TVL1Params | None = None, device=None,
                  dtype: str = "float32", flow_impl: str = "pallas", mesh=None):
         self.cfg = cfg or ExtractionConfig()
         self.tvl1 = tvl1 or PRODUCTION_TVL1
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}; got {dtype!r}")
         check_flow_impl(flow_impl)
+        if tsn.rgb.temporal != (self.cfg.arch == "i3d") or \
+                tsn.flow.temporal != tsn.rgb.temporal:
+            raise ValueError(f"the networks do not match arch {self.cfg.arch!r}")
+        if warped is None:
+            # each architecture's flow: TSN's warped stream, I3D's plain TV-L1
+            warped = self.cfg.arch == "bn_inception"
         if (warped and self.cfg.flow_warm_camera == "init"
                 and self.tvl1.camera_model != "homography"):
             # the warm pairs' refinement exists for homographies only: an
@@ -862,14 +922,19 @@ class Extractor:
 
     def write_csv_tree(self, signatures: list[ClipSignatures], out_dir: str,
                        video: str, video_url: str,
-                       modelname_fmt: str = "UCF101_split{split}",
-                       weights_uri_fmt: str = "ucf101_split{split}_tsn_{stream}_bn_inception.npz",
+                       modelname_fmt: str | None = None,
+                       weights_uri_fmt: str | None = None,
                        ) -> list[str]:
         """One CSV per (split, stream) under <out>/<video>/<modelname>/.
-        With a mesh only the rank at data and model coordinate 0 writes (the
+        The names default to the architecture's (CSV_NAMES); a model
+        directory ends in its split's digit, which the loader reads. With a
+        mesh only the rank at data and model coordinate 0 writes (the
         others return [])."""
         if not signatures or not self.writes_output:
             return []
+        default_model, default_weights = CSV_NAMES[self.cfg.arch]
+        modelname_fmt = modelname_fmt or default_model
+        weights_uri_fmt = weights_uri_fmt or default_weights
         signatures = gather_signatures(signatures)
         paths = []
         for ki, split in enumerate(signatures[0].splits):
@@ -907,22 +972,27 @@ def main(argv=None) -> None:
     import argparse
     import glob
 
-    p = argparse.ArgumentParser(description="Two-stream TSN feature extraction "
+    p = argparse.ArgumentParser(description="Two-stream TSN or I3D feature extraction "
                                             "(PyTorch/CUDA port)")
     p.add_argument("src", help="video file, directory of videos, or 'synthetic'")
     p.add_argument("--out", required=True, help="output feature-CSV tree root")
     p.add_argument("--weights", default=None,
                    help="npz weight bundle dir (from convert_caffe); random if omitted")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
-    p.add_argument("--splits", type=int, nargs="+", default=[1, 2, 3])
+    p.add_argument("--arch", default="bn_inception", choices=sorted(CSV_NAMES),
+                   help="the networks: TSN's BN-Inception, or I3D on dense clips")
+    p.add_argument("--splits", type=int, nargs="+", default=None,
+                   help="default 1 2 3 (bn_inception), 1 (i3d)")
     p.add_argument("--num_ticks", type=int, default=25)
-    p.add_argument("--fps", type=int, default=15)
+    p.add_argument("--fps", type=int, default=None,
+                   help="default 15 (bn_inception), 25 (i3d)")
     p.add_argument("--clip_time", type=int, default=10)
     p.add_argument("--batch_clips", type=int, default=8)
     p.add_argument("--no-warp", action="store_true", help="plain (unwarped) TV-L1")
     p.add_argument("--ext", default="mp4")
-    p.add_argument("--modelname", default="UCF101_split{split}",
-                   help="per-split model dir name template")
+    p.add_argument("--modelname", default=None,
+                   help="per-split model dir name template (default: the "
+                        "architecture's, Extractor.write_csv_tree)")
     p.add_argument("--new_width", type=int, default=0, help="decode resize width")
     p.add_argument("--new_height", type=int, default=0, help="decode resize height")
     p.add_argument("--flow_res_div", type=int, default=2,
@@ -942,11 +1012,17 @@ def main(argv=None) -> None:
     p.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
                    help="the networks' working type (f32 accumulation either way)")
     args = p.parse_args(argv)
+    i3d = args.arch == "i3d"
+    splits = tuple(args.splits or ([1] if i3d else [1, 2, 3]))
+    if i3d and args.weights:
+        raise SystemExit("--weights: no converter for I3D's Kinetics checkpoints yet; "
+                         "omit it for seeded weights")
 
-    cfg = ExtractionConfig(fps=args.fps, clip_seconds=args.clip_time,
+    cfg = ExtractionConfig(fps=args.fps or (25 if i3d else 15), clip_seconds=args.clip_time,
                            num_ticks=args.num_ticks, batch_clips=args.batch_clips,
                            flow_res_div=args.flow_res_div, host_gray=args.host_gray,
-                           host_crop=args.host_crop, host_yuv420=args.host_yuv420)
+                           host_crop=args.host_crop, host_yuv420=args.host_yuv420,
+                           arch=args.arch)
     if args.src == "synthetic":
         os.makedirs(args.out, exist_ok=True)
         path = os.path.join(args.out, "_synthetic.mp4")
@@ -968,11 +1044,11 @@ def main(argv=None) -> None:
 
     device = resolve_device()
     if args.weights:
-        tsn = TwoStreamTSN.from_npz_dir(args.weights, tuple(args.splits), device)
+        tsn = TwoStreamTSN.from_npz_dir(args.weights, splits, device)
     else:
-        log.warning("no --weights: using random-initialized TSN (pipeline demo)")
-        tsn = TwoStreamTSN.random(args.seed, tuple(args.splits), device)
-    ex = Extractor(tsn, cfg, warped=not args.no_warp, device=device,
+        log.warning("no --weights: using random-initialized %s (pipeline demo)", args.arch)
+        tsn = TwoStreamTSN.random(args.seed, splits, device, args.arch)
+    ex = Extractor(tsn, cfg, warped=False if args.no_warp else None, device=device,
                    dtype=args.dtype)
     new_size = new_size or ex._decode_size()
 

@@ -6,6 +6,11 @@ antialiasing) fused with the crop as two matmuls, mean subtraction, and
 dense_flow's 8-bit flow quantization. Crops are the center crop (``"tl"``
 is the reference's literal first crop). The net inputs are computed in f32
 and cast to the net's working type (``dtype``), as the JAX package does.
+
+I3D's inputs (arXiv:1705.07750, kinetics-i3d; no counterpart in the JAX
+package) take the same resize and crop: rgb in RGB order scaled to [-1, 1]
+(``preprocess_rgb_i3d``), flow truncated to [-bound, bound] and scaled to
+[-1, 1] without quantization (``scale_flow``, ``preprocess_flow_i3d``).
 """
 
 from __future__ import annotations
@@ -94,6 +99,30 @@ def preprocess_flow(stacks: torch.Tensor, resize_wh: tuple[int, int] = (340, 256
     computed in f32 and cast to ``dtype``."""
     x = _resize_crop(stacks, resize_wh[0], resize_wh[1], crop_size, crop)
     return (x - FLOW_MEAN).to(dtype)
+
+
+def preprocess_rgb_i3d(frames: torch.Tensor, resize_wh: tuple[int, int] = (340, 256),
+                       crop_size: int = 224, crop: str = "center",
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """BGR frames [..., H, W, 3] -> I3D's rgb input: resized and cropped as
+    preprocess_rgb does, in RGB order, x / 127.5 - 1, computed in f32 and
+    cast to ``dtype``."""
+    x = _resize_crop(frames, resize_wh[0], resize_wh[1], crop_size, crop)
+    return (x.flip(-1) / 127.5 - 1.0).to(dtype)
+
+
+def scale_flow(flow: torch.Tensor, bound: float = 20.0) -> torch.Tensor:
+    """I3D's flow scaling: truncated to [-bound, bound], divided by bound
+    (f32 in [-1, 1]; quantize_flow's counterpart)."""
+    return torch.clamp(flow, -bound, bound) / bound
+
+
+def preprocess_flow_i3d(flow: torch.Tensor, resize_wh: tuple[int, int] = (340, 256),
+                        crop_size: int = 224, crop: str = "center",
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Scaled flow [..., h, w, 2] (scale_flow) -> I3D's flow input: resized
+    and cropped as preprocess_flow does, cast to ``dtype``."""
+    return _resize_crop(flow, resize_wh[0], resize_wh[1], crop_size, crop).to(dtype)
 
 
 def quantize_flow(flow: torch.Tensor, bound: float = 20.0) -> torch.Tensor:

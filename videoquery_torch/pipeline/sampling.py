@@ -64,6 +64,14 @@ def flow_pair_plan(frame_cnt: int, num_ticks: int = 25,
             inverse.reshape(stack_idx.shape).astype(np.int32))
 
 
+def dense_plan(frame_cnt: int) -> tuple[np.ndarray, np.ndarray]:
+    """I3D's dense sampling of a clip (no counterpart in the JAX package):
+    (frames i64[F], pair_idx i32[F-1]), 0-based: every frame, the rgb
+    volume, and every consecutive pair (f, f+1), the flow volume."""
+    return (np.arange(frame_cnt, dtype=np.int64),
+            np.arange(max(frame_cnt - 1, 0), dtype=np.int32))
+
+
 def flow_warm_plan(pair_idx: np.ndarray, group: int = 5
                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Temporal warm-start plan over a pair list (VERDICT r2 #2).
