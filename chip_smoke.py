@@ -6,9 +6,9 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    K1, K2, K3, T1 and T2 (kernels/csrc/{query_kernel,tvl1_level,
-            window_warp,inception_block,roll}.cu) compiled by nvcc for sm_90a,
-            one process each, all at once.
+2. build    K1, K2, K3, T1, T2 and P1 (kernels/csrc/{query_kernel,
+            tvl1_level,window_warp,inception_block,roll,max_pool3d}.cu)
+            compiled by nvcc for sm_90a, one process each, all at once.
 2b. cuda    the `cuda` tests, which import no jax: python -m pytest
             --noconftest -p no:cacheprovider -m cuda
             tests/test_torch_cuda_kernels.py; every test must pass, none
@@ -34,6 +34,15 @@ Phases, each printing its own lines; any failure exits non-zero:
             64-wide grid (the four-pixel vector body), and 100 at 30x101 (the
             scalar body), separable and full, rough random flow beyond the
             clamp; rtol 1e-5 / atol 1e-6. The host cost of a call at 48x64.
+6b. p1     P1 (I3D's max pool) against its plain version on the card at the
+            13 pool shapes of one rgb forward of 8 clips (250 frames at
+            224x224, bf16), 1% -inf and 0.1% NaN planted: NaN in the same
+            places, every other value equal. Each pool's time (CUDA events),
+            its bound (input read once, output written once), the plain
+            version's and F.max_pool3d's on an NCDHW copy (the library
+            yardstick, timed only), and their sums over the forward. Then
+            one I3D rgb embed at those shapes, P1's launch counter zeroed
+            before it: 13 launches, and the forward's time.
 7. k2       K2 (TV-L1 level) against its plain version on 400 key pairs at
             each production level (128, 64, 32, 16 px square; window
             max(2, round(6 * 0.5**level)); PRODUCTION_TVL1.at_level), at
@@ -189,7 +198,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             with -B, HOME and XDG_CACHE_HOME in a temporary directory, and an
             import blocker that refuses jax and the JAX package. Then python
             -m videoquery_torch.kernels._build with
-            VIDEOQUERY_TORCH_BUILD_DIR=<tmp>/kernels builds the five
+            VIDEOQUERY_TORCH_BUILD_DIR=<tmp>/kernels builds the six
             libraries there; the installed broker round (phase 4's: the
             fixture CSVs, seed 42, new -> revise -> finalize on cuda:0) on
             them compiles nothing (its build log is empty), adds no file to
@@ -271,6 +280,8 @@ T1_SOURCE = "videoquery_torch/kernels/csrc/inception_block.cu"
 T1_REPLACES = "tools/inception_pallas.py:66"
 T2_SOURCE = "videoquery_torch/kernels/csrc/roll.cu"
 T2_REPLACES = "tools/mosaic_roll_repro.py:26"
+P1_SOURCE = "videoquery_torch/kernels/csrc/max_pool3d.cu"
+P1_REPLACES = "none: added for I3D's max pools (videoquery_torch/nn/i3d.py)"
 PEAK_BYTES = 3.35e12                        # H100 SXM HBM3, bytes/s
 PEAK_BF16, PEAK_F32 = 989e12, 67e12         # tensor-core bf16; f32 without
 FLOW_ATOL_PX = 1e-3  # K2 vs plain: same operations in the same order
@@ -964,6 +975,85 @@ def phase_k3(dev) -> dict:
     log("[k3] host us per call at 400 x 48x64 (host clock, mean of 2,000): "
         + ", ".join(f"{k} {v:.3f}" for k, v in times["host_us"].items()))
     return {"err": max(errs), **times}
+
+
+# -- phase 6b -----------------------------------------------------------------
+
+def phase_p1(dev) -> dict:
+    """P1 vs its plain version at the 13 pool shapes of one rgb forward of 8
+    clips (bf16), -inf and NaN planted, bit for bit; each pool's time, bound,
+    plain and library time, and their sums. Then one rgb forward of I3D at
+    those shapes: P1's launches in it, and its time."""
+    import torch
+    import torch.nn.functional as F
+
+    from videoquery_torch.kernels import max_pool3d as p1
+    from videoquery_torch.nn import i3d
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows, err = [], 0.0
+    for name, shape, k, s in i3d.pool_shapes(8, 250, 224, 224):
+        x = torch.rand(shape, generator=g, device=dev) * 2 - 1
+        cells = torch.rand(shape, generator=g, device=dev)
+        x.masked_fill_(cells < 0.01, -float("inf"))
+        x.masked_fill_(cells > 0.999, float("nan"))
+        del cells
+        x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        got, want = p1.max_pool_same(x, k, s), p1.max_pool_same_reference(x, k, s)
+        nan = want.isnan()
+        # |got - want| over the cells where the plain version is not NaN (an
+        # equal -inf counts 0)
+        diff = torch.where(got == want, 0.0, (got.float() - want.float()).abs())
+        err = max(err, float(diff.masked_fill(nan, 0).max()))
+        if not (torch.equal(got.isnan(), nan)
+                and torch.equal(got.masked_fill(nan, 0), want.masked_fill(nan, 0))):
+            raise AssertionError(f"P1 at {name} {shape}: differs from the plain version")
+        # the library call: cuDNN's NCDHW pool, SAME as padding=before with
+        # ceil_mode (the plain version's rule); the copy is made untimed
+        ncdhw = x.contiguous()
+        pads = tuple(p1.same_padding(d, kk, ss)[0] for d, kk, ss in zip(shape[2:], k, s))
+        library = lambda: F.max_pool3d(ncdhw, k, s, padding=pads, ceil_mode=True)  # noqa: E731
+        lib = library()
+        rows.append({
+            "name": name, "shape": list(shape), "kernel": list(k), "stride": list(s),
+            "ms": cuda_ms(lambda: p1.max_pool_same(x, k, s)),
+            "plain_ms": cuda_ms(lambda: p1.max_pool_same_reference(x, k, s)),
+            "library_ms": cuda_ms(library),
+            "library_equal": bool(torch.equal(lib.isnan(), nan) and torch.equal(
+                lib.masked_fill(nan, 0), want.masked_fill(nan, 0))),
+            **bound(2.0 * (x.numel() + got.numel()), 0.0, PEAK_BF16)})
+        r = rows[-1]
+        log(f"[p1] {name} {tuple(shape)} k{k} s{s}: P1 {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.2f} of it), plain "
+            f"{r['plain_ms']:.4f}, F.max_pool3d NCDHW {r['library_ms']:.4f} "
+            f"(equal: {r['library_equal']})")
+        del x, got, want, nan, diff, ncdhw, lib
+    total = {key: sum(r[key] for r in rows) for key in ("ms", "bound_ms", "plain_ms",
+                                                        "library_ms")}
+    log(f"[p1] 13 pools of one rgb forward, 8 x 250 x 224x224 bf16, agree with the plain "
+        f"version bit for bit (max abs err {err:.3e}); summed: P1 {total['ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.3f} ({total['bound_ms'] / total['ms']:.2f} of it), plain "
+        f"{total['plain_ms']:.3f}, F.max_pool3d {total['library_ms']:.3f} (CUDA events, mean "
+        f"of 10)")
+    # the main path: one rgb forward of the cell's volumes, P1's launches
+    # counted from zero around it
+    net = i3d.InceptionI3d(i3d.init_params(23, i3d.RGB_CHANNELS)).to(dev)
+    clips = (torch.rand((8, 250, 224, 224, i3d.RGB_CHANNELS), generator=g, device=dev) * 2
+             - 1).to(torch.bfloat16)
+    net.embed(clips)                                  # the weights' casts, cuDNN's plans
+    torch.cuda.synchronize()
+    p1.LAUNCHES = 0
+    net.embed(clips)
+    torch.cuda.synchronize()
+    launches = p1.LAUNCHES
+    if launches != 13:
+        raise AssertionError(f"an rgb forward launched P1 {launches} times, not 13")
+    forward_ms = cuda_ms(lambda: net.embed(clips), 3)
+    log(f"[p1] I3D rgb embed, 8 x 250 x 224x224 bf16: {launches} P1 launches a forward; "
+        f"{forward_ms:.2f} ms (CUDA events, mean of 3)")
+    del net, clips
+    return {**total, "bound_by": "bytes", "pools": rows, "err": err, "launches": launches,
+            "forward_ms": forward_ms}
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -2382,7 +2472,8 @@ def phase_installed(broker_rows: str) -> dict:
         for line in text.strip().splitlines():
             log(f"[installed]   {line}")
         built = sorted(f for f in os.listdir(kernels) if f.endswith(".so"))
-        assert len(built) == 5 and text.count("(built)") == 5, text
+        n_sources = len(_build.sources())
+        assert len(built) == n_sources and text.count("(built)") == n_sources, text
         kernel_files = file_tree(kernels)
 
         # the installed broker round on the prebuilt kernels: phase 4's round
@@ -2549,14 +2640,16 @@ def main() -> int:
 
     from videoquery_torch.core.meshes import initialize_multihost, make_mesh
     from videoquery_torch.kernels import _build, inception_block as t1, query as k1
+    from videoquery_torch.kernels import max_pool3d as p1
     from videoquery_torch.kernels import roll as t2, tvl1_level as k2, window_warp as k3
 
     sources = ("query_kernel.cu", "tvl1_level.cu", "window_warp.cu", "inception_block.cu",
-               "roll.cu")
+               "roll.cu", "max_pool3d.cu")
     t0 = time.perf_counter()
     _build.build(sources)
     k1._ENTRY.load(), k2._ENTRY.load(), k3._ENTRY.load(), t1._ENTRY.load(), t2._ENTRY.load()
-    log(f"[build] K1, K2, K3, T1, T2 ready in {time.perf_counter() - t0:.1f} s "
+    p1._ENTRY.load()
+    log(f"[build] K1, K2, K3, T1, T2, P1 ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source)")
     for src in sources:
         for line in ptxas_summary(_build.BUILD_LOG.get(src, "")):
@@ -2568,6 +2661,7 @@ def main() -> int:
     rounds = phase_rounds(dev)
     query = phase_query(dev)
     warp = phase_k3(dev)
+    pool = phase_p1(dev)
     level = phase_k2(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ext = phase_extract(dev, tmp)
@@ -2713,6 +2807,16 @@ def main() -> int:
         "library_ms": rollp["library_ms"], "library_call": "torch.roll with a host shift",
         "shape": "[1, 80, 256] f32, axis 0, shift -5",
         "host_us": rollp["host_us"],
+    }, {
+        "name": "P1 I3D max pool, NDHWC, TensorFlow SAME padding",
+        "route": "cuda", "source": P1_SOURCE, "replaces": P1_REPLACES,
+        "launches": pool["launches"], "max_abs_err": pool["err"],
+        "ms": pool["ms"], "plain_ms": pool["plain_ms"],
+        "bound_ms": pool["bound_ms"], "bound_by": pool["bound_by"],
+        "library_ms": pool["library_ms"],
+        "library_call": "F.max_pool3d on an NCDHW copy, padding=before, ceil_mode",
+        "shape": "the 13 pools of one rgb forward, 8 x 250 x 224x224 bf16, summed",
+        "pools": pool["pools"], "rgb_forward_ms": pool["forward_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,7 @@ from videoquery_torch.core import profiling
 from videoquery_torch.core.profiling import trace_record
 from videoquery_torch.kernels import _launch
 from videoquery_torch.kernels import inception_block as t1
+from videoquery_torch.kernels import max_pool3d as p1
 from videoquery_torch.kernels import query as k1
 from videoquery_torch.kernels import roll as t2
 from videoquery_torch.kernels import tvl1_flow
@@ -782,3 +783,105 @@ def test_i3d_on_the_card_against_the_reference(channels):
     want = want["global_pool"]
     assert float((low - want).abs().mean() / want.abs().mean()) < 0.02
 
+
+
+# -- P1: I3D's max pools --------------------------------------------------------
+
+def planted_volume(shape, dtype, seed):
+    """Channels-last-3d values in [-1, 1) on the card with 1% -inf and 0.3%
+    NaN cells."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(shape, generator=g, device="cuda") * 2 - 1
+    cells = torch.rand(shape, generator=g, device="cuda")
+    x.masked_fill_(cells < 0.01, -float("inf"))
+    x.masked_fill_(cells > 0.997, float("nan"))
+    return x.to(dtype).contiguous(memory_format=torch.channels_last_3d)
+
+
+def p1_agrees(x, k, s) -> None:
+    """One launch of P1 equals the plain version: NaN in the same places,
+    every other value equal (torch.equal), channels-last-3d."""
+    launches = p1.LAUNCHES
+    got = p1.max_pool_same(x, k, s)
+    assert p1.LAUNCHES == launches + 1
+    want = p1.max_pool_same_reference(x, k, s)
+    assert got.shape == want.shape and got.dtype == x.dtype
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan), (tuple(x.shape), k, s)
+    assert torch.equal(got.masked_fill(nan, 0), want.masked_fill(nan, 0)), (tuple(x.shape), k, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [250, 249])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_p1_matches_plain_version_at_the_cells_pools(dtype, frames):
+    """P1 at each of the 13 pool shapes of a stream of the I3D cell (8
+    volumes of 250 rgb frames or 249 flow pairs at 224 x 224), -inf and NaN
+    planted: bit for bit against the plain version."""
+    needs_card()
+    from videoquery_torch.nn import i3d
+
+    for i, (_name, shape, k, s) in enumerate(i3d.pool_shapes(8, frames, 224, 224)):
+        p1_agrees(planted_volume(shape, dtype, seed=frames + i), k, s)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 64, 7, 33, 31), (1, 528, 5, 9, 10), (3, 16, 1, 2, 3),
+                                   (1, 832, 2, 1, 1), (2, 40, 9, 14, 15)])
+@pytest.mark.parametrize("k, s", [((1, 3, 3), (1, 2, 2)), ((3, 3, 3), (1, 1, 1)),
+                                  ((3, 3, 3), (2, 2, 2)), ((2, 2, 2), (2, 2, 2))])
+def test_p1_at_odd_sizes(k, s, shape, dtype):
+    """P1 at odd T, H and W, a single frame, 1x1 planes and channel counts
+    whose slab is not 8 vectors, each kind of the net's windows."""
+    needs_card()
+    p1_agrees(planted_volume(shape, dtype, seed=sum(shape)), k, s)
+
+
+@pytest.mark.cuda
+def test_p1_refuses_what_it_does_not_take():
+    needs_card()
+    x = planted_volume((1, 64, 4, 6, 6), torch.float32, seed=0)
+    for bad in (lambda: p1.max_pool_same(x, (4, 3, 3), (1, 1, 1)),
+                lambda: p1.max_pool_same(x, (2, 3, 3), (3, 1, 1)),
+                lambda: p1.max_pool_same(x[:, :3].contiguous(memory_format=torch.channels_last_3d),
+                                         (3, 3, 3), (1, 1, 1)),
+                lambda: p1.max_pool_same(x.contiguous(), (3, 3, 3), (1, 1, 1)),
+                lambda: p1.max_pool_same(x.half(), (3, 3, 3), (1, 1, 1))):
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_i3d_takes_p1_at_each_of_its_13_pools(dtype, monkeypatch):
+    """A forward on the card launches P1 13 times, once a pool, each on a
+    channels-last-3d input as cuDNN's convs leave it, and counts the
+    launches in i3d.pool_launches."""
+    needs_card()
+    from videoquery_torch.nn import i3d
+
+    net = i3d.InceptionI3d(i3d.init_params(3, 2)).cuda()
+    x = torch.rand(2, 15, 63, 65, 2, device="cuda").to(dtype)
+    real, layouts = i3d.InceptionI3d._pool, []
+
+    def spy(v, k, s):
+        layouts.append(v.is_contiguous(memory_format=torch.channels_last_3d))
+        return real(v, k, s)
+
+    monkeypatch.setattr(i3d.InceptionI3d, "_pool", staticmethod(spy))
+    monkeypatch.setattr(profiling, "_state", profiling._State())
+    launches = p1.LAUNCHES
+    net.embed(x)
+    assert p1.LAUNCHES == launches + 13
+    assert layouts == [True] * 13
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        net.embed(x)
+    torch.cuda.synchronize()
+    assert p1.LAUNCHES == launches + 26
+    rec = trace_record()
+    assert rec.counters["i3d.pool_launches"] == 13
+    pools = [sp for sp in rec.spans if sp.name == "i3d.pool"]
+    assert len(pools) == 13 and all(sp.device_ms is not None for sp in pools)

@@ -294,11 +294,17 @@ def test_the_spans_nest_in_a_cpu_trace(tsn, payload, monkeypatch):
         ex._dispatch_payload(payload)
     rec = profiling.trace_record()
     by_id = {s.id: s for s in rec.spans}
-    nested = [(s.name, by_id[s.parent].name) for s in sorted(rec.spans, key=lambda s: s.start_ns)
-              if s.name.startswith("i3d.")]
+    ordered = sorted(rec.spans, key=lambda s: s.start_ns)
+    nested = [(s.name, by_id[s.parent].name) for s in ordered
+              if s.name in ("i3d.stem", "i3d.mixed")]
     assert nested == [("i3d.stem", "extract.rgb_net"), ("i3d.mixed", "extract.rgb_net"),
                       ("i3d.stem", "extract.flow_net"), ("i3d.mixed", "extract.flow_net")]
+    # the 13 pools of each forward: 2 in the stem, 11 among the Mixed blocks
+    pools = [by_id[s.parent].name for s in ordered if s.name == "i3d.pool"]
+    assert pools == (["i3d.stem"] * 2 + ["i3d.mixed"] * 11) * 2
     assert rec.counters["extract.flow_pairs"] == 2 * 15
+    # the CPU takes the plain pool: no kernel launch
+    assert rec.counters["i3d.pool_launches"] == 0
 
 
 def test_the_cli_writes_the_i3d_tree(tmp_path, monkeypatch):

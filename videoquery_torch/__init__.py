@@ -18,7 +18,9 @@ counterparts too: the fused Inception block
 (``kernels/csrc/inception_block.cu``, driven by
 ``python -m videoquery_torch.tools.inception_block_bench``) and the
 dynamic-shift roll (``kernels/csrc/roll.cu``,
-``python -m videoquery_torch.tools.roll_repro``). The JAX package
+``python -m videoquery_torch.tools.roll_repro``). I3D's max pools run on
+a sixth, which ports no Pallas kernel (``kernels/csrc/max_pool3d.cu``). The
+JAX package
 ``videoquery`` is the reference this package is tested against; this
 package imports nothing of it and keeps its own copies of the jax-free
 modules it needs (``pipeline/sampling.py``, ``pipeline/decode.py``,

@@ -41,15 +41,19 @@ Two layouts keep the work on fast paths without changing the arithmetic:
   padded to 8x8x8: the same products plus zeros, over 8 C channels (24
   rgb, 16 flow), which cuDNN's tensor cores take; on C = 3 or 2 channels
   cuDNN falls back to a float32 CUDA-core kernel.
-- A max pool runs its (h, w) window with ``F.max_pool2d`` on the
-  [N * T, C, H, W] view (NHWC; cuDNN's 3D pool writes NCDHW) and its t
-  window as a max of strided slices. SAME's padding is the pool's own
-  ``padding=before`` with ``ceil_mode``, which gives ``ceil(n / s)`` windows
-  in the same places; cells past the input never win a max.
+- A max pool is one call of ``kernels/max_pool3d.py`` (P1): on the card
+  one launch of a hand-written NDHWC kernel that reads each input once and
+  writes each output once, with SAME's padding computed in the kernel
+  (cells past the input never win a max); on the CPU its plain version,
+  ``F.max_pool2d`` on the [N * T, C, H, W] view and a max of strided t
+  slices.
 
 Spans (``core/profiling.py``): ``i3d.stem`` (``Conv3d_1a_7x7`` through
 ``MaxPool3d_3a_3x3``) and ``i3d.mixed`` (``Mixed_3b`` through ``Mixed_5c``
-with the pools between), each with device events.
+with the pools between), each with device events, and inside them
+``i3d.pool`` around each of the 13 pools of a forward. The counter
+``i3d.pool_launches`` counts the pools' kernel launches (13 a forward on
+the card, none on the CPU).
 """
 
 from __future__ import annotations
@@ -61,7 +65,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from videoquery_torch.core.profiling import span
+from videoquery_torch.core.profiling import count, span
+from videoquery_torch.kernels import max_pool3d
+from videoquery_torch.kernels.max_pool3d import same_padding
 
 NUM_CLASSES = 400        # Kinetics-400
 EMBED_DIM = 1024         # Mixed_5c's channels
@@ -139,6 +145,23 @@ def conv_layers(in_channels: int) -> list[tuple[str, tuple, tuple, int, int]]:
     return convs
 
 
+def pool_shapes(n: int, frames: int, h: int, w: int) -> list[tuple[str, tuple, tuple, tuple]]:
+    """The 13 max pools of a forward over n volumes of frames x h x w, in
+    order: (name, input shape [N, C, T, H, W], kernel, stride)."""
+    dims, c, pools = (frames, h, w), 0, []
+    for layer in LAYERS:
+        if layer[0] == "conv":
+            dims, c = tuple(-(-d // s) for d, s in zip(dims, layer[3])), layer[4]
+        elif layer[0] == "pool":
+            pools.append((layer[1], (n, c) + dims, layer[2], layer[3]))
+            dims = tuple(-(-d // s) for d, s in zip(dims, layer[3]))
+        else:
+            pools.append((f"{layer[1]}/Branch_3/MaxPool3d_0a_3x3", (n, c) + dims, THREE, ONE))
+            b0, _b1a, b1b, _b2a, b2b, b3 = MIXED[layer[1]]
+            c = b0 + b1b + b2b + b3
+    return pools
+
+
 def init_params(seed: int, in_channels: int = RGB_CHANNELS,
                 num_classes: int = NUM_CLASSES) -> dict[str, dict[str, np.ndarray]]:
     """Seeded parameters, BN-Inception's distribution: Xavier-uniform convs
@@ -156,13 +179,6 @@ def init_params(seed: int, in_channels: int = RGB_CHANNELS,
               ).astype(np.float32),
         "b": np.zeros(num_classes, np.float32)}
     return params
-
-
-def same_padding(n: int, k: int, s: int) -> tuple[int, int]:
-    """TensorFlow's SAME padding of one axis of n cells: (before, after)."""
-    out = -(-n // s)
-    total = max((out - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
 
 
 def conv_input(x: torch.Tensor, k: tuple, s: tuple) -> tuple[torch.Tensor, tuple]:
@@ -204,24 +220,9 @@ def space_to_depth_weight(w: torch.Tensor) -> torch.Tensor:
     return w8.permute(0, 3, 5, 7, 1, 2, 4, 6).reshape(o, 8 * c, 4, 4, 4)
 
 
-def max_pool_same(x: torch.Tensor, k: tuple, s: tuple) -> torch.Tensor:
-    """Max pool of NCDHW x (channels-last-3d) with SAME padding (module
-    docstring): the (h, w) window on the NHWC images, then the t window."""
-    n, c, t, h, w = x.shape
-    (t0, t1), (ph, _), (pw, _) = [same_padding(d, kk, ss)
-                                  for d, kk, ss in zip(x.shape[2:], k, s)]
-    if k[1:] != (1, 1) or s[1:] != (1, 1):
-        y = F.max_pool2d(x.transpose(1, 2).reshape(n * t, c, h, w), k[1:], s[1:],
-                         padding=(ph, pw), ceil_mode=True)
-        x = y.reshape(n, t, c, y.shape[2], y.shape[3]).transpose(1, 2)
-    if k[0] == 1 and s[0] == 1:
-        return x
-    xp = F.pad(x, (0, 0, 0, 0, t0, t1), value=-math.inf)
-    last = (-(-t // s[0]) - 1) * s[0] + 1
-    y = xp[:, :, 0:last:s[0]]
-    for i in range(1, k[0]):
-        y = torch.maximum(y, xp[:, :, i:i + last:s[0]])
-    return y
+# max pool of NCDHW x with SAME padding: P1 on the card, its plain version on
+# the CPU (module docstring)
+max_pool_same = max_pool3d.max_pool_same
 
 
 class InceptionI3d(nn.Module):
@@ -287,19 +288,27 @@ class InceptionI3d(nn.Module):
         y = F.conv3d(x, w, None, padding=pad)       # f32 sums, one rounding
         return y.add_(self.biases[key].view(1, -1, 1, 1, 1)).relu_()
 
+    @staticmethod
+    def _pool(x: torch.Tensor, k: tuple, s: tuple) -> torch.Tensor:
+        with span("i3d.pool", x.device):
+            launches = max_pool3d.LAUNCHES
+            y = max_pool3d.max_pool_same(x, k, s)
+            count("i3d.pool_launches", max_pool3d.LAUNCHES - launches)
+        return y
+
     def _mixed(self, name: str, x: torch.Tensor) -> torch.Tensor:
         c = [f"{name}/{branch}" for branch in BRANCHES]
         b0 = self._conv(c[0], x)
         b1 = self._conv(c[2], self._conv(c[1], x))
         b2 = self._conv(c[4], self._conv(c[3], x))
-        b3 = self._conv(c[5], max_pool_same(x, THREE, ONE))
+        b3 = self._conv(c[5], self._pool(x, THREE, ONE))
         return torch.cat([b0, b1, b2, b3], dim=1)
 
     def _layer(self, layer: tuple, y: torch.Tensor) -> torch.Tensor:
         if layer[0] == "conv":
             return self._conv(layer[1], y)
         if layer[0] == "pool":
-            return max_pool_same(y, layer[2], layer[3])
+            return self._pool(y, layer[2], layer[3])
         return self._mixed(layer[1], y)
 
     @torch.no_grad()
