@@ -27,8 +27,9 @@ from videoquery.core.config import HyperParams as JaxHyperParams
 from videoquery.service.compute_matches import compute_matches as jax_compute
 from videoquery.service.repository import APIRepository as JaxRepository
 from videoquery.testing.fake_api import FakeAPI, FakeClient
-from videoquery_torch.core.config import (STATE_FINALIZED, STATE_PROCESSED,
-                                          BrokerConfig, HyperParams)
+from videoquery_torch.core.config import (STATE_FINALIZED, STATE_IN_PROGRESS,
+                                          STATE_PROCESSED, BrokerConfig,
+                                          HyperParams)
 from videoquery_torch.service.broker import Broker
 from videoquery_torch.service.loader import DBLoader
 from videoquery_torch.service.repository import APIRepository
@@ -197,6 +198,55 @@ def test_port_resident_batched_poll_bit_identical(tmp_path, monkeypatch):
     drain(seq, tmp_path, max_jobs_per_poll=1)
     drain(bat, tmp_path)
     assert snapshot(seq) == snapshot(bat)
+
+
+def test_port_resident_group_survives_a_job_that_cannot_be_prepared(tmp_path, monkeypatch):
+    """One revise job of a resident poll group whose reviewed match names a
+    clip outside the search set: its round prep raises, it alone stays in
+    progress (for lease recovery), and every other job of its group ends
+    as in a poll without it."""
+    monkeypatch.setattr(cm, "SearchConfig",
+                        lambda: types.SimpleNamespace(big_round_threshold=100))
+    clean, bad = build_world(tmp_path), build_world(tmp_path)
+    bad_q = min(q["id"] for q in bad.queries.values() if q["process_state"] == 2)
+    _latest(bad, bad_q)[-1]["video_clip"] = 10 ** 9
+    prep_sizes = []
+    prep = cm._prepare_group_rounds
+    monkeypatch.setattr(cm, "_prepare_group_rounds",
+                        lambda gjobs, hp: (prep_sizes.append(len(gjobs)), prep(gjobs, hp)))
+    port_poll(bad, tempfile.mkdtemp(prefix="reports_", dir=tmp_path))
+    assert prep_sizes == [11] + [1] * 11  # the group, then each job alone
+    assert bad.queries[bad_q]["process_state"] == STATE_IN_PROGRESS
+    drain(clean, tmp_path)
+    want, got = snapshot(clean), snapshot(bad)
+    name = bad.queries[bad_q]["name"]
+    assert {k: v for k, v in got.items() if k != name} == {
+        k: v for k, v in want.items() if k != name}
+    states = [q["process_state"] for q in bad.queries.values()]
+    assert states.count(STATE_FINALIZED) == 4 and states.count(STATE_PROCESSED) == 6
+
+
+def test_process_job_resident_round_equals_the_full_download(tmp_path, monkeypatch):
+    """process_job over a resident table prepares its round as a poll group
+    of one, and ends every round of the fixture lifecycle as the
+    full-download path does, bit for bit."""
+    def job_poll(api, report_dir):
+        repo = APIRepository(FakeClient(api), "fake://")
+        for job in cm.drain_pending_jobs(repo, repo.client, seed=SEED,
+                                         report_dir=report_dir):
+            cm.process_job(job.ticket, job.update_type, job.update_object,
+                           HyperParams(), rng=job.rng, device="cpu")
+
+    full = snapshot(fixture_lifecycle(job_poll, str(tmp_path / "full")))
+    prep_sizes = []
+    prep = cm._prepare_group_rounds
+    monkeypatch.setattr(cm, "_prepare_group_rounds",
+                        lambda gjobs, hp: (prep_sizes.append(len(gjobs)), prep(gjobs, hp)))
+    monkeypatch.setattr(cm, "SearchConfig",
+                        lambda: types.SimpleNamespace(big_round_threshold=1))
+    resident = snapshot(fixture_lifecycle(job_poll, str(tmp_path / "resident")))
+    assert prep_sizes == [1] * 6  # two queries, three rounds each
+    assert resident == full
 
 
 def test_broker_run_once_processes_a_query(tmp_path):

@@ -9,6 +9,7 @@ round and the batched similarity are bit-identical to the full-table or
 solo path. Exact mode (host float64) is bit-identical to the JAX package.
 """
 
+import copy
 import math
 import random
 
@@ -22,8 +23,10 @@ from videoquery.search.engine import SearchEngine as JaxEngine
 from videoquery_torch.core.config import HyperParams, compute_eps
 from videoquery_torch.index.records import FeatureRecord
 from videoquery_torch.index.store import FeatureIndex
-from videoquery_torch.search.engine import (SearchEngine, _banded_core, optimize_many,
-                                            round_scores_many)
+from videoquery_torch.search import engine as engine_mod
+from videoquery_torch.search.engine import (ResidentTable, SearchEngine, _banded_args,
+                                            _banded_core, _unpack_banded,
+                                            optimize_many, round_scores_many)
 from videoquery_torch.search.selection import (finalize_near_miss,
                                                lowest_scoring_user_match,
                                                select_clips_to_review)
@@ -170,37 +173,93 @@ def test_group_round_bit_identical_to_solo(world):
         assert g is not None and g == want
 
 
-def test_group_cap_overflow_escalates_then_falls_through(world):
-    """A band wider than the group cap retries solo at the next cap; wider
-    than every cap gives None, and the full-table fallback is exact."""
+@pytest.mark.parametrize("overflow", ["every_row", "some_rows"])
+def test_group_cap_overflow_escalates_then_falls_through(world, monkeypatch, overflow):
+    """The rows whose band is wider than a cap retry together at the next
+    cap and equal their calls alone; a row that fits is not computed again
+    (a spy on _band_rows). Wider than every cap gives None, and the
+    full-table fallback is exact."""
     _, index, targets, ids = world
     engine, hp = SearchEngine(index), HyperParams()
     tables = engine.compute_similarities_multi(targets[:3], resident=True)
-    specs = _specs(tables, hp, ids, threshold=-10.0)  # the band is everything
-    escalated = round_scores_many(tables, specs, caps=(4, 512))
-    for g, t, r in zip(escalated, tables, specs):
-        want = t.round_scores(r["weights"], r["threshold"], r["near_miss"],
-                              r["keep_ids"], r["user_match_ids"],
-                              finalize=r["finalize"], caps=(512,))
-        assert g is not None and g == want
-        assert len(g) == len(t.to_table().scores(r["weights"]))
-    assert round_scores_many(tables, specs, caps=(4, 8)) == [None] * 3
+    specs = _specs(tables, hp, ids)
+    if overflow == "every_row":
+        wide, cap0 = [0, 1, 2], 4
+        for i in wide:
+            specs[i] = {**specs[i], "threshold": -10.0}  # the band is everything
+    else:
+        wide = [2]  # the second row of its flavor
+        # the narrow rows' bands fit the first cap (a band is at most its dict)
+        cap0 = max(len(tables[i].round_scores(**specs[i], caps=(512,))) for i in (0, 1))
+        scores2 = tables[2].to_table().scores(specs[2]["weights"])
+        ranked = sorted(scores2, key=scores2.get, reverse=True)
+        assert cap0 + 16 < len(ranked)
+        # row 2: a band wider than the first cap but not everything, and a
+        # second kept clip, the lowest-scoring one, outside it
+        specs[2] = {**specs[2], "threshold": scores2[ranked[cap0 + 8]], "near_miss": 0.0,
+                    "keep_ids": [ids[2], ranked[-1]]}
+    solo = [t.round_scores(**r, caps=(512,)) for t, r in zip(tables, specs)]
+    assert all(len(solo[i]) > cap0 + 4 for i in wide)
+    calls = []
+    band_rows = engine_mod._band_rows
+
+    def spy(index, group, avg, counts, w, threshold, *rest):
+        calls.append((rest[-2], list(threshold), rest[-1]))  # finalize, rows, cap
+        return band_rows(index, group, avg, counts, w, threshold, *rest)
+
+    monkeypatch.setattr(engine_mod, "_band_rows", spy)
+    escalated = round_scores_many(tables, specs, caps=(cap0, 512))
+    want_calls = []
+    for finalize, rows in ((False, [0, 2]), (True, [1])):  # _specs' flavors
+        want_calls.append((finalize, [specs[i]["threshold"] for i in rows], cap0))
+        if retry := [i for i in rows if i in wide]:
+            want_calls.append((finalize, [specs[i]["threshold"] for i in retry], 512))
+    assert calls == want_calls
+    monkeypatch.undo()
+    for i, (g, t, r) in enumerate(zip(escalated, tables, specs)):
+        assert g is not None and g == solo[i]
+        assert g == t.round_scores(**r, caps=(cap0, 512))
+        if i in wide and overflow == "every_row":
+            assert len(g) == len(t.to_table().scores(r["weights"]))
+    if overflow == "some_rows":
+        assert ranked[-1] in escalated[2]
+    fell = round_scores_many(tables, specs, caps=(cap0, cap0 + 4))
+    assert [g is None for g in fell] == [i in wide for i in range(3)]
+    assert all(g == solo[i] for i, g in enumerate(fell) if i not in wide)
     full = engine.compute_similarities(targets[0])
     back = tables[0].to_table()
     np.testing.assert_array_equal(back.avg_sim, full.avg_sim)
     np.testing.assert_array_equal(back.counts, full.counts)
 
 
+def test_a_group_over_two_indexes_is_refused(world):
+    """A group's rows map their positions to clip ids through one index:
+    tables over two index objects, or over one index in two groups, raise
+    in both group functions instead of scoring the wrong clips."""
+    _, index, targets, ids = world
+    engine, hp = SearchEngine(index), HyperParams()
+    a, b = engine.compute_similarities_multi(targets[:2], resident=True)
+    specs = _specs([a, b], hp, ids)
+    other = ResidentTable(copy.copy(index), b.avg, b.counts)
+    regrouped = ResidentTable(index, b.avg, b.counts, group=object())
+    for mixed in ([a, other], [a, regrouped]):
+        with pytest.raises(ValueError, match="one index and one group"):
+            optimize_many(mixed, [_labels(ids, 0), _labels(ids, 1)], hp)
+        with pytest.raises(ValueError, match="one index and one group"):
+            round_scores_many(mixed, specs)
+
+
 def _packed_row(resident, weights, threshold, keep_ids, cap):
     """One packed row of _banded_core for a revise round with near miss 0
     (the band: scores >= threshold), as the card downloads it (f32)."""
-    w, keep_pos, n_keep, _, _ = resident._banded_args(weights, keep_ids, [])
+    w, keep_pos, n_keep, _, _ = _banded_args(resident.index, [{
+        "weights": weights, "keep_ids": keep_ids, "user_match_ids": []}])
     f32 = dict(dtype=torch.float32)
     row = _banded_core(resident.avg[None], resident.counts[None],
-                       torch.tensor(w[None], **f32), torch.tensor([threshold], **f32),
+                       torch.tensor(w, **f32), torch.tensor([threshold], **f32),
                        torch.zeros(1, **f32), compute_eps(),
-                       torch.from_numpy(keep_pos[None]), None, cap)[0].numpy()
-    return row, w, keep_pos, n_keep
+                       torch.from_numpy(keep_pos), None, cap)[0].numpy()
+    return row, w[0], keep_pos[0], n_keep[0]
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -235,7 +294,7 @@ def test_band_decode_is_the_full_tables_scores(world, case, dtype):
         cap = k - 1
     row, w, keep_pos, n_keep = _packed_row(resident, weights, threshold, keep, cap)
     assert int(row[-1]) == len(band)
-    got = resident._unpack_banded(row.astype(dtype), w, keep_pos, n_keep, cap)
+    got = _unpack_banded(index, row.astype(dtype), w, keep_pos, n_keep, cap)
     if case == "band_overflows_cap":
         assert got is None
         return

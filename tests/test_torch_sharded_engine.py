@@ -47,8 +47,9 @@ from videoquery.search.engine import SearchEngine as JaxEngine
 from videoquery_torch.core.config import HyperParams, compute_eps
 from videoquery_torch.core.meshes import initialize_multihost, make_mesh
 from videoquery_torch.index.store import ShardSpec
-from videoquery_torch.search.engine import (ResidentTable, SearchEngine, _local_rows,
-                                            merge_banded, optimize_many, round_scores_many)
+from videoquery_torch.search.engine import (SearchEngine, _banded_args, _local_rows,
+                                            _unpack_banded, merge_banded, optimize_many,
+                                            round_scores_many)
 from videoquery_torch.search.selection import (finalize_near_miss,
                                                lowest_scoring_user_match,
                                                select_clips_to_review)
@@ -96,7 +97,8 @@ def shards(world, unsharded, n_shards, source):
     unsharded engine's resident tables ("sliced")."""
     if source == "k1":
         return InProcessShards.from_index(world.index, world.targets, n_shards)
-    avg, counts, _ = unsharded[1][0].batch
+    avg = torch.stack([t.avg for t in unsharded[1]])        # [Q, S, N]
+    counts = torch.stack([t.counts for t in unsharded[1]])
     n = N_CLIPS // n_shards
     return InProcessShards(world.index, [avg[:, :, r * n:(r + 1) * n] for r in range(n_shards)],
                            [counts[:, :, r * n:(r + 1) * n] for r in range(n_shards)])
@@ -240,8 +242,7 @@ def test_cap_overflows_globally_not_on_a_shard(world, unsharded, n_shards, sourc
     qi, spec, _ = case_spec(world, unsharded, "revise")
     spec = {**spec, "threshold": spec["threshold"] - 0.1}
     sh = shards(world, unsharded, n_shards, source)
-    w, keep_pos, _, um_pos, um_mask = sh._meta._banded_args(
-        spec["weights"], spec["keep_ids"], spec["user_match_ids"])
+    w, keep_pos, _, um_pos, um_mask = (a[0] for a in _banded_args(sh.index, [spec]))
     per_shard = sh.band_rows(qi, w, spec["threshold"], spec["near_miss"], keep_pos,
                              um_pos, um_mask, False, 512)[:, -1]
     cap = int(per_shard.max())
@@ -324,7 +325,7 @@ def test_merged_row_decodes_positions_past_2_24():
         for r in range(2)]).astype(np.float64)
     merged = merge_banded(rows, s, cap, n_local, ShardSpec(0, 2, n_local).locate(keep_pos)[0])
     index = SimpleNamespace(streams=("rgb", "flow"), shard_spec=None, clip_ids=_Ids())
-    got = ResidentTable(index, None, None)._unpack_banded(merged, w, keep_pos, 3, cap)
+    got = _unpack_banded(index, merged, w, keep_pos, 3, cap)
 
     a = torch.cat([avg[0], avg[1]], dim=1).numpy().astype(np.float64)  # [S, 2n]
     dev = w[:, None] * (1.0 - a)

@@ -72,7 +72,7 @@ def _banded_core(avg, counts, weights, threshold, near_miss, eps,
     difference); otherwise it is ``near_miss``.
 
     Every op is elementwise or a reduction within one row, so a row's bits
-    are the same whatever B is: the solo and group paths agree."""
+    are the same whatever B is: a group of one and a larger group agree."""
     b, s, n = avg.shape
     valid = (counts > 0).all(dim=1)                                 # [B, N]
     scores = torch.where(valid, scores_from_similarities(avg, weights),
@@ -230,15 +230,17 @@ def _scores_f64(avg: np.ndarray, w: np.ndarray) -> np.ndarray:
     return 1.0 - np.sqrt((dev * dev).sum(axis=0) / (w * w).sum())
 
 
-def _pad_positions(pos: list[int], multiple: int = 8, at_least: int = 0
-                   ) -> tuple[np.ndarray, int]:
-    """Pad a position list (position 0 as filler, never read back) to a
-    multiple of 8, at least `at_least` so a poll group shares one shape."""
-    m = len(pos)
-    mp = max(multiple, at_least, -(-m // multiple) * multiple)
-    out = np.zeros(mp, np.int64)
-    out[:m] = pos
-    return out, m
+def _pad_positions(pos_lists: Sequence[Sequence[int]], multiple: int = 8
+                   ) -> tuple[np.ndarray, list[int]]:
+    """B position lists -> int64[B, M] and their lengths, each row padded
+    with position 0 (filler, never read back) to the longest list rounded
+    up to a multiple of 8, at least 8, so a group shares one shape."""
+    n = [len(p) for p in pos_lists]
+    out = np.zeros((len(n), max(multiple, -(-max(n) // multiple) * multiple)), np.int64)
+    for i, p in enumerate(pos_lists):
+        if p:
+            out[i, :n[i]] = p
+    return out, n
 
 
 class SimilarityTable:
@@ -327,6 +329,57 @@ def _round_state(hp: HyperParams, sim: np.ndarray, labels: list[float]
     return hp.with_round_state(new_weights, result.threshold), result
 
 
+def _positions(index: FeatureIndex, clip_ids: Sequence[int]) -> list[int]:
+    """The index positions of the clip ids in the index, in order."""
+    out = []
+    for cid in clip_ids:
+        pos = index.position(cid)
+        if pos is not None:
+            out.append(pos)
+    return out
+
+
+def _banded_args(index: FeatureIndex, rounds: Sequence[Mapping]):
+    """The host-side arguments of B rounds over ``index`` (each round's
+    weights, keep_ids and user_match_ids), each built once: the weight
+    vectors f64[B, S], the kept positions int64[B, K] and their numbers,
+    the user-match positions int64[B, U] and their mask bool[B, U]."""
+    w = np.array([[r["weights"][st] for st in index.streams] for r in rounds], np.float64)
+    keep_pos, n_keep = _pad_positions([_positions(index, r["keep_ids"]) for r in rounds])
+    um_pos, n_um = _pad_positions([_positions(index, r["user_match_ids"]) for r in rounds])
+    um_mask = np.zeros(um_pos.shape, bool)
+    for i, n in enumerate(n_um):
+        um_mask[i, :n] = True
+    return w, keep_pos, n_keep, um_pos, um_mask
+
+
+def _unpack_banded(index: FeatureIndex, packed: np.ndarray, w: np.ndarray,
+                   keep_pos: np.ndarray, n_keep: int, cap: int
+                   ) -> dict[int, float] | None:
+    """Turn one packed row (see _banded_core; f32, or f64 from
+    merge_banded) into the reduced ascending-clip-id float64 scores dict,
+    or None on band overflow. Only the live prefix is read: the in-band
+    positions fill the first n_cand slots, ascending."""
+    with span("engine.band_unpack"):
+        s = len(index.streams)
+        n_cand = int(packed[-1])
+        if n_cand > cap:
+            return None
+        count("engine.band_clips", n_cand)
+        cand_sz = (s + 2) * cap
+        cand = packed[:cand_sz].reshape(s + 2, cap)[:, :n_cand]
+        keep_sz = (s + 1) * keep_pos.shape[0]
+        keep = packed[cand_sz:cand_sz + keep_sz].reshape(s + 1, -1)[:, :n_keep]
+        cvalid, kvalid = cand[s] > 0.5, keep[s] > 0.5
+        pos = np.concatenate([cand[s + 1, cvalid].astype(np.int64),
+                              keep_pos[:n_keep][kvalid]])
+        avg = np.concatenate([cand[:s, cvalid], keep[:s, kvalid]], axis=1)
+        scores = _scores_f64(avg.astype(np.float32, copy=False), w)
+        # a kept clip in the band comes twice, with the same bits
+        pos, first = np.unique(pos, return_index=True)
+        return dict(zip(index.clip_ids[pos].tolist(), scores[first].tolist()))
+
+
 class ResidentTable:
     """Device-resident similarity table: the big-corpus round.
 
@@ -334,45 +387,28 @@ class ResidentTable:
     rows ([S, M] for M reviewed clips); round_scores() downloads only the
     banded candidates plus kept clips, returning the reduced ascending-clip-id
     scores dict that select_clips_to_review needs — its exact float64 band
-    filtering makes the selection identical to the full-download path.
+    filtering makes the selection identical to the full-download path. Both
+    are a poll group of one (optimize_many, round_scores_many).
 
     On a shard of the index (a sharded SearchEngine), avg/counts are the
     shard's and every method is a collective over ``group``, the mesh's
     "data" group: every rank makes the same calls and gets the same
     results."""
 
-    def __init__(self, index: FeatureIndex, avg, counts, batch=None, group=None):
+    def __init__(self, index: FeatureIndex, avg, counts, group=None):
         if index.shard_spec is not None and group is None:
             raise ValueError("a resident table over a shard needs the data group")
         self.index = index
         self.avg = avg        # f32[S, Npad] device (the shard's n_local)
         self.counts = counts  # i32[S, Npad] device
-        # (avg_q f32[Q,S,Npad], counts_q, qi) when this table is one row of
-        # a batched poll group (compute_similarities_multi): optimize_many /
-        # round_scores_many then serve the whole group with one download
-        self.batch = batch
         self.group = group
-
-    def _positions(self, clip_ids: Sequence[int]) -> list[int]:
-        out = []
-        for cid in clip_ids:
-            pos = self.index.position(cid)
-            if pos is not None:
-                out.append(pos)
-        return out
 
     def optimize(
         self, reviewed_labels: Mapping[int, float], hp: HyperParams
     ) -> tuple[HyperParams, GridResult]:
         """SimilarityTable.optimize semantics; the reviewed similarities are
         gathered on device and downloaded alone."""
-        with span("optimizer"):
-            positions, labels = _reviewed_positions(self.index, reviewed_labels)
-            with span("optimizer.fetch"):
-                sim = _reviewed_rows(self.index, self.group, self.avg[None],
-                                     np.asarray([positions], np.int64))[0]
-            with span("optimizer.grid"):
-                return _round_state(hp, sim, labels)
+        return optimize_many([self], [reviewed_labels], hp)[0]
 
     def round_scores(
         self,
@@ -391,68 +427,10 @@ class ResidentTable:
         The candidate download is cap-sized, so caps escalate: a wide band
         retries at the next cap, and a band wider than every cap returns
         None — the caller then falls back to the full-table download."""
-        with span("engine.banded"):
-            return self._round_scores_capped(weights, threshold, near_miss, keep_ids,
-                                             user_match_ids, finalize, caps)
-
-    def _round_scores_capped(self, weights, threshold, near_miss, keep_ids,
-                             user_match_ids, finalize: bool, caps: Sequence[int]
-                             ) -> dict[int, float] | None:
-        for cap in caps:
-            out = self._round_scores_once(weights, threshold, near_miss,
-                                          keep_ids, user_match_ids,
-                                          finalize, cap)
-            if out is not None:
-                return out
-        return None
-
-    def _banded_args(self, weights, keep_ids, user_match_ids,
-                     keep_bucket: int = 0, um_bucket: int = 0):
-        """Host-side argument prep shared by the solo and group paths."""
-        w = np.asarray([weights[st] for st in self.index.streams], np.float64)
-        keep_pos, n_keep = _pad_positions(self._positions(keep_ids),
-                                          at_least=keep_bucket)
-        um_pos, n_um = _pad_positions(self._positions(user_match_ids),
-                                      at_least=um_bucket)
-        um_mask = np.zeros(um_pos.shape[0], bool)
-        um_mask[:n_um] = True
-        return w, keep_pos, n_keep, um_pos, um_mask
-
-    def _unpack_banded(self, packed: np.ndarray, w: np.ndarray,
-                       keep_pos: np.ndarray, n_keep: int, cap: int
-                       ) -> dict[int, float] | None:
-        """Turn one packed row (see _banded_core; f32, or f64 from
-        merge_banded) into the reduced ascending-clip-id float64 scores dict,
-        or None on band overflow. Only the live prefix is read: the in-band
-        positions fill the first n_cand slots, ascending."""
-        with span("engine.band_unpack"):
-            s = len(self.index.streams)
-            n_cand = int(packed[-1])
-            if n_cand > cap:
-                return None
-            count("engine.band_clips", n_cand)
-            cand_sz = (s + 2) * cap
-            cand = packed[:cand_sz].reshape(s + 2, cap)[:, :n_cand]
-            keep_sz = (s + 1) * keep_pos.shape[0]
-            keep = packed[cand_sz:cand_sz + keep_sz].reshape(s + 1, -1)[:, :n_keep]
-            cvalid, kvalid = cand[s] > 0.5, keep[s] > 0.5
-            pos = np.concatenate([cand[s + 1, cvalid].astype(np.int64),
-                                  keep_pos[:n_keep][kvalid]])
-            avg = np.concatenate([cand[:s, cvalid], keep[:s, kvalid]], axis=1)
-            scores = _scores_f64(avg.astype(np.float32, copy=False), w)
-            # a kept clip in the band comes twice, with the same bits
-            pos, first = np.unique(pos, return_index=True)
-            return dict(zip(self.index.clip_ids[pos].tolist(), scores[first].tolist()))
-
-    def _round_scores_once(self, weights, threshold, near_miss, keep_ids,
-                           user_match_ids, finalize: bool, cap: int
-                           ) -> dict[int, float] | None:
-        w, keep_pos, n_keep, um_pos, um_mask = self._banded_args(
-            weights, keep_ids, user_match_ids)
-        packed = _band_rows(self.index, self.group, self.avg[None], self.counts[None],
-                            w[None], [threshold], [near_miss], keep_pos[None],
-                            um_pos[None], um_mask[None], finalize, cap)[0]
-        return self._unpack_banded(packed, w, keep_pos, n_keep, cap)
+        return round_scores_many([self], [{
+            "weights": weights, "threshold": threshold, "near_miss": near_miss,
+            "keep_ids": keep_ids, "user_match_ids": user_match_ids,
+            "finalize": finalize}], caps)[0]
 
     def to_table(self) -> SimilarityTable:
         """Full-download fallback (identical to compute_similarities); on a
@@ -464,15 +442,19 @@ class ResidentTable:
         return SimilarityTable(self.index, avg.cpu().numpy(), counts.cpu().numpy())
 
 
-def _shared_batch(tables: Sequence[ResidentTable]):
-    """The common batch parent of a poll group's tables, or None."""
-    if not tables or tables[0].batch is None:
-        return None
-    parent = tables[0].batch[0]
-    for t in tables:
-        if t.batch is None or t.batch[0] is not parent:
-            return None
-    return tables[0].batch[:2]
+def _stacked(rows: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[B, S, N] of B tables' rows [S, N] on the device: a view of a group
+    of one, else one copy of the B rows."""
+    return rows[0][None] if len(rows) == 1 else torch.stack(list(rows))
+
+
+def _shared_index(tables: Sequence[ResidentTable]) -> tuple[FeatureIndex, object]:
+    """The index and the group that every table of a poll group is over:
+    the rows' positions map to clip ids through the one index."""
+    index, group = tables[0].index, tables[0].group
+    if any(t.index is not index or t.group is not group for t in tables):
+        raise ValueError("a poll group's tables must share one index and one group")
+    return index, group
 
 
 def optimize_many(
@@ -480,32 +462,23 @@ def optimize_many(
     labels_list: Sequence[Mapping[int, float]],
     hp: HyperParams,
 ) -> list[tuple[HyperParams, GridResult]]:
-    """Batched ResidentTable.optimize across one poll group: every query's
+    """SimilarityTable.optimize across a poll group of any size, whose
+    tables share one index and one group (else ValueError): every query's
     reviewed rows are gathered in ONE device op and downloaded in ONE copy.
-    The per-query grid optimization stays host-side float64 — bit-identical
-    to solo optimize (the gather moves bits, it computes nothing)."""
+    The per-query grid optimization stays host-side float64 — the same
+    bits whatever the group (the gather moves bits, it computes nothing)."""
     if not tables:
         return []
-    shared = _shared_batch(tables)
-    if shared is None or len(tables) == 1:
-        return [t.optimize(labels, hp)
-                for t, labels in zip(tables, labels_list)]
-    avg_q, _ = shared
+    index, group = _shared_index(tables)
     with span("optimizer"):
-        per = [_reviewed_positions(t.index, labels)
-               for t, labels in zip(tables, labels_list)]
-        m_bucket = max(_pad_positions(p)[0].shape[0] for p, _ in per)
-        pos_q = np.zeros((len(tables), m_bucket), np.int64)
-        sel = np.zeros(len(tables), np.int64)
-        for qi, (table, (positions, _)) in enumerate(zip(tables, per)):
-            pos_q[qi], _ = _pad_positions(positions, at_least=m_bucket)
-            sel[qi] = table.batch[2]
+        per = [_reviewed_positions(index, labels) for labels in labels_list]
+        pos_q, n = _pad_positions([positions for positions, _ in per])
         with span("optimizer.fetch"):
-            rows = avg_q[torch.from_numpy(sel).to(avg_q.device)]        # [Q, S, N]
-            sims = _reviewed_rows(tables[0].index, tables[0].group, rows, pos_q)  # [Q, S, M]
+            sims = _reviewed_rows(index, group, _stacked([t.avg for t in tables]),
+                                  pos_q)  # [Q, S, M]
         with span("optimizer.grid"):
-            return [_round_state(hp, sims[qi][:, :len(positions)], lab)
-                    for qi, (positions, lab) in enumerate(per)]
+            return [_round_state(hp, sims[qi][:, :n[qi]], lab)
+                    for qi, (_, lab) in enumerate(per)]
 
 
 def round_scores_many(
@@ -513,59 +486,49 @@ def round_scores_many(
     rounds: Sequence[Mapping],
     caps: Sequence[int] = _CAPS,
 ) -> list[dict[int, float] | None]:
-    """Batched ResidentTable.round_scores across one poll group: the banded
+    """ResidentTable.round_scores across a poll group of any size, whose
+    tables share one index and one group (else ValueError): the banded
     candidates of every query come back in ONE download per finalize-flavor
-    (_banded_core is shared with the solo path and is row-independent, so
-    each row is bit-identical to a solo round).
+    and cap (_banded_core is row-independent, so each row has the bits of a
+    group of one).
 
     rounds[i]: {weights, threshold, near_miss, keep_ids, user_match_ids,
-    finalize}. A query whose band overflows the group cap retries solo at
-    the escalated caps; None means wider than every cap (caller falls back
-    to the full-table download), exactly like solo round_scores."""
-    shared = _shared_batch(tables)
-    if shared is None or len(tables) == 1:
-        return [
-            t.round_scores(r["weights"], r["threshold"], r["near_miss"],
-                           r["keep_ids"], r["user_match_ids"],
-                           finalize=r["finalize"], caps=caps)
-            for t, r in zip(tables, rounds)
-        ]
+    finalize}. The queries whose band overflows a cap retry together at
+    the next; None means wider than every cap (the caller falls back to the
+    full-table download). On a shard the overflow is read from the merged
+    rows, the same on every rank, so every rank makes the same calls."""
+    if not tables:
+        return []
+    index, group = _shared_index(tables)
+    results: list = [None] * len(tables)
     with span("engine.banded"):
-        results: list = [None] * len(tables)
-        avg_q, counts_q = shared
-        dev = avg_q.device
         by_flavor: dict[bool, list[int]] = {}
         for i, r in enumerate(rounds):
             by_flavor.setdefault(bool(r["finalize"]), []).append(i)
         for finalize, idxs in by_flavor.items():
-            args = [tables[i]._banded_args(
-                rounds[i]["weights"], rounds[i]["keep_ids"],
-                rounds[i]["user_match_ids"]) for i in idxs]
-            keep_bucket = max(a[1].shape[0] for a in args)
-            um_bucket = max(a[3].shape[0] for a in args)
-            args = [tables[i]._banded_args(
-                rounds[i]["weights"], rounds[i]["keep_ids"],
-                rounds[i]["user_match_ids"], keep_bucket, um_bucket)
-                for i in idxs]
-            sel = torch.tensor([tables[i].batch[2] for i in idxs], device=dev)
-            packed = _band_rows(
-                tables[0].index, tables[0].group, avg_q[sel], counts_q[sel],
-                np.stack([a[0] for a in args]),
-                [rounds[i]["threshold"] for i in idxs],
-                [rounds[i]["near_miss"] for i in idxs],
-                np.stack([a[1] for a in args]), np.stack([a[3] for a in args]),
-                np.stack([a[4] for a in args]), finalize, caps[0])
-            for row, (i, (w, keep_pos, n_keep, _up, _um)) in enumerate(
-                    zip(idxs, args)):
-                out = tables[i]._unpack_banded(packed[row], w, keep_pos, n_keep,
-                                               caps[0])
-                if out is None and len(caps) > 1:  # overflow: solo escalation
-                    r = rounds[i]
-                    out = tables[i]._round_scores_capped(
-                        r["weights"], r["threshold"], r["near_miss"],
-                        r["keep_ids"], r["user_match_ids"], r["finalize"], caps[1:])
-                results[i] = out
-        return results
+            w, keep_pos, n_keep, um_pos, um_mask = _banded_args(
+                index, [rounds[i] for i in idxs])
+            live = idxs  # the rounds still to band, one row each
+            for cap in caps:
+                packed = _band_rows(
+                    index, group, _stacked([tables[i].avg for i in live]),
+                    _stacked([tables[i].counts for i in live]), w,
+                    [rounds[i]["threshold"] for i in live],
+                    [rounds[i]["near_miss"] for i in live],
+                    keep_pos, um_pos, um_mask, finalize, cap)
+                over = []
+                for row, i in enumerate(live):
+                    results[i] = _unpack_banded(index, packed[row], w[row], keep_pos[row],
+                                                n_keep[row], cap)
+                    if results[i] is None:
+                        over.append(row)
+                if not over:
+                    break
+                # only the overflowing rows go on to the next cap
+                live = [live[row] for row in over]
+                w, keep_pos, um_pos, um_mask = (a[over] for a in (w, keep_pos, um_pos, um_mask))
+                n_keep = [n_keep[row] for row in over]
+    return results
 
 
 class SearchEngine:
@@ -645,8 +608,7 @@ class SearchEngine:
             avg, counts = ensemble_similarities_batched(*pack_targets(idx, targets),
                                                         idx.feats, idx.mask)
         if resident:
-            return [ResidentTable(idx, avg[qi], counts[qi],
-                                  batch=(avg, counts, qi), group=self.group)
+            return [ResidentTable(idx, avg[qi], counts[qi], group=self.group)
                     for qi in range(q)]
         if self.group is not None:
             avg = all_gather_cat(avg, self.group, dim=2)

@@ -49,8 +49,8 @@ from videoquery_torch.core.config import (
 )
 from videoquery_torch.core.device import resolve_device
 from videoquery_torch.index.store import FeatureIndex
-from videoquery_torch.search.engine import (ResidentTable, SearchEngine,
-                                            optimize_many, round_scores_many)
+from videoquery_torch.search.engine import (SearchEngine, optimize_many,
+                                            round_scores_many)
 from videoquery_torch.search.selection import (
     INFINITE_MATCHES,
     finalize_near_miss,
@@ -108,7 +108,7 @@ class _Job:
     rng: random.Random | None
     ref_splits: set | None = None
     table: Any = None  # SimilarityTable | ResidentTable, set by the group pass
-    # group-batched round results (resident groups only): the optimizer
+    # a resident table's round (_prepare_group_rounds): the optimizer
     # gathers and banded-candidate downloads of the whole group run as
     # single downloads (engine.optimize_many / round_scores_many)
     hp_round: Any = None
@@ -235,24 +235,16 @@ def compute_matches(
         try:
             index = _group_index(gjobs[0].ticket, hyperparameters, splits,
                                  exact, index_cache, device)
-            engine = SearchEngine(index, exact=exact)
-            big = (not exact
-                   and index.n_padded >= SearchConfig().big_round_threshold)
-            if exact:
-                tables = [engine.compute_similarities(j.ticket.target_features)
-                          for j in gjobs]
-            else:
-                tables = engine.compute_similarities_multi(
-                    [j.ticket.target_features for j in gjobs], resident=big)
-            for job, table in zip(gjobs, tables):
-                job.table = table
-            if big and len(gjobs) > 1:
-                # big-corpus groups: run the whole group's optimizer gathers
-                # and banded-candidate downloads as ONE download each
-                _prepare_group_rounds(gjobs, hyperparameters)
+            resident = _score_group(gjobs, index, hyperparameters, exact)
         except Exception as exc:
+            # the group's jobs stay in state 3 for lease recovery
+            for job in gjobs:
+                job.table = None
             log.error("similarity pass failed for search set %s: %s",
                       search_set, exc, exc_info=True)
+            continue
+        if resident:
+            _prepare_rounds_isolated(gjobs, hyperparameters)
 
     # -- per-query round finish, drain order ---------------------------------
     for job in ready:
@@ -335,9 +327,29 @@ def _reviewed_labels(ticket: Ticket) -> dict[int, float]:
     return reviewed
 
 
+def _score_group(gjobs: list[_Job], index: FeatureIndex, hp: HyperParams,
+                 exact: bool) -> bool:
+    """The similarity pass of one group over ``index``: sets each job's
+    table, all from one launch (exact: the host float64 path, one job at a
+    time). True when the tables stay on the device, from
+    SearchConfig().big_round_threshold clips: the group's rounds are then
+    prepared together, whatever its size (_prepare_group_rounds)."""
+    engine = SearchEngine(index, exact=exact)
+    big = not exact and index.n_padded >= SearchConfig().big_round_threshold
+    if exact:
+        tables = [engine.compute_similarities(j.ticket.target_features)
+                  for j in gjobs]
+    else:
+        tables = engine.compute_similarities_multi(
+            [j.ticket.target_features for j in gjobs], resident=big)
+    for job, table in zip(gjobs, tables):
+        job.table = table
+    return big
+
+
 def _round_spec(ticket: Ticket, update_type: str, hp_round) -> dict:
     """The banded-round parameters of one job (ResidentTable.round_scores
-    argument set), shared by the solo and group-batched paths."""
+    argument set)."""
     user_match_ids = [int(c) for c, v in ticket.user_matches.items()
                       if v is True]
     return {
@@ -351,10 +363,10 @@ def _round_spec(ticket: Ticket, update_type: str, hp_round) -> dict:
 
 
 def _prepare_group_rounds(gjobs, hp: HyperParams) -> None:
-    """Group-batched round prep for a resident (big-corpus) poll group:
-    sets job.hp_round and job.scores so finish_job skips its per-query
-    device traffic. One gather covers every optimizing job; one banded
-    pass per finalize-flavor covers every download."""
+    """The round of a resident (big-corpus) poll group of any size: sets
+    job.hp_round and job.scores for finish_job. One gather covers every
+    optimizing job; one banded pass per finalize-flavor covers every
+    download."""
     opt_jobs, opt_labels = [], []
     for job in gjobs:
         if job.update_type == "new" or not job.update_object["matches"]:
@@ -377,6 +389,28 @@ def _prepare_group_rounds(gjobs, hp: HyperParams) -> None:
         job.scores = scores
 
 
+def _prepare_rounds_isolated(gjobs, hp: HyperParams) -> None:
+    """_prepare_group_rounds for a poll group; if it raises, each job's
+    round is prepared alone (the same body for a group of one), so a job
+    that cannot be prepared (a malformed match, say) fails by itself: its
+    table is dropped and it stays in state 3 for lease recovery, while the
+    rest of its group finishes."""
+    try:
+        _prepare_group_rounds(gjobs, hp)
+        return
+    except Exception as exc:
+        log.warning("round prep of a group of %d failed (%s); preparing each "
+                    "job alone", len(gjobs), exc)
+    for job in gjobs:
+        job.hp_round = job.scores = None
+        try:
+            _prepare_group_rounds([job], hp)
+        except Exception as exc:
+            job.table = None
+            log.error("round prep failed for query %s: %s",
+                      job.ticket.query_id, exc, exc_info=True)
+
+
 def finish_job(
     ticket: Ticket,
     update_type: str,
@@ -390,10 +424,9 @@ def finish_job(
 ) -> None:
     """Everything after the similarity pass: hyperparameter round state,
     round persistence, scoring, selection, matches, report/finalize
-    (reference compute_matches.py:61-107). hp_round/scores may be
-    precomputed by the group-batched pass (_prepare_group_rounds)."""
-    resident = table if isinstance(table, ResidentTable) else None
-
+    (reference compute_matches.py:61-107). A ResidentTable comes with its
+    hp_round and scores (_prepare_group_rounds); a SimilarityTable is
+    fitted and scored here."""
     # -- hyperparameter round state (compute_matches.py:61-67) ---------------
     if hp_round is None:
         if update_type == "new" or not update_object["matches"]:
@@ -407,20 +440,7 @@ def finish_job(
     new_round = 1 if update_type == "new" else ticket.latest_query_result["round"] + 1
     new_result_id = ticket.create_query_result(new_round, hp_round)
 
-    if scores is not None:
-        ticket.scores = scores
-    elif resident is not None:
-        spec = _round_spec(ticket, update_type, hp_round)
-        scores = resident.round_scores(
-            spec["weights"], spec["threshold"], spec["near_miss"],
-            spec["keep_ids"], spec["user_match_ids"],
-            finalize=spec["finalize"],
-        )
-        if scores is None:  # band wider than every cap: full download
-            scores = resident.to_table().scores(hp_round.weights)
-        ticket.scores = scores
-    else:
-        ticket.scores = table.scores(hp_round.weights)
+    ticket.scores = scores if scores is not None else table.scores(hp_round.weights)
     if update_type == "finalize":
         max_number_matches = INFINITE_MATCHES
         low_score, _ = lowest_scoring_user_match(ticket.scores, ticket.user_matches)
@@ -465,15 +485,11 @@ def process_job(
     estimate_target(ticket, update_object, hp, rng=rng)
     index = _group_index(ticket, hp, tuple(sorted(ticket._target_splits)),
                          exact, index_cache, device)
-    engine = SearchEngine(index, exact=exact)
-    big = (not exact
-           and index.n_padded >= SearchConfig().big_round_threshold)
-    if exact:
-        table = engine.compute_similarities(ticket.target_features)
-    else:
-        [table] = engine.compute_similarities_multi(
-            [ticket.target_features], resident=big)
-    finish_job(ticket, update_type, update_object, hp, table, rng=rng)
+    job = _Job(update_type, update_object, ticket, rng)
+    if _score_group([job], index, hp, exact):
+        _prepare_group_rounds([job], hp)
+    finish_job(ticket, update_type, update_object, hp, job.table, rng=rng,
+               hp_round=job.hp_round, scores=job.scores)
 
 
 def catch_no_matches_error(ticket: Ticket) -> None:

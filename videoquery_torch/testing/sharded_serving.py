@@ -30,10 +30,10 @@ import torch
 
 from videoquery_torch.core.config import HyperParams, compute_eps
 from videoquery_torch.index.store import FeatureIndex, ShardSpec
-from videoquery_torch.search.engine import (ResidentTable, SearchEngine,
+from videoquery_torch.search.engine import (SearchEngine, _banded_args,
                                             _local_low, _local_rows, _round_state,
                                             _reviewed_positions, _scores_f64,
-                                            merge_banded,
+                                            _unpack_banded, merge_banded,
                                             optimize_many, pack_targets,
                                             round_scores_many, select_owned)
 from videoquery_torch.search.scoring import ensemble_similarities_batched
@@ -117,7 +117,6 @@ class InProcessShards:
         self.avgs, self.counts = list(avgs), list(counts)
         r = len(self.avgs)
         self.specs = [ShardSpec(i, r, index.n_padded // r) for i in range(r)]
-        self._meta = ResidentTable(index, None, None)
 
     @staticmethod
     def from_index(index: FeatureIndex, targets: Sequence[Mapping], n_shards: int
@@ -153,14 +152,14 @@ class InProcessShards:
                      caps: Sequence[int] = (32_768, 262_144)) -> dict[int, float] | None:
         """ResidentTable.round_scores over the R shards: each cap tried in
         turn, None when the whole band is wider than every cap."""
-        w, keep_pos, n_keep, um_pos, um_mask = self._meta._banded_args(
-            weights, keep_ids, user_match_ids)
+        w, keep_pos, n_keep, um_pos, um_mask = (a[0] for a in _banded_args(self.index, [{
+            "weights": weights, "keep_ids": keep_ids, "user_match_ids": user_match_ids}]))
         for cap in caps:
             rows = self.band_rows(qi, w, threshold, near_miss, keep_pos, um_pos,
                                   um_mask, finalize, cap)
             merged = merge_banded(rows, len(self.index.streams), cap,
                                   self.specs[0].n_local, self.specs[0].locate(keep_pos)[0])
-            out = self._meta._unpack_banded(merged, w, keep_pos, n_keep, cap)
+            out = _unpack_banded(self.index, merged, w, keep_pos, n_keep, cap)
             if out is not None:
                 return out
         return None

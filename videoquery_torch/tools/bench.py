@@ -184,9 +184,9 @@ def revise_round(engine, targets, labels, resident: bool):
 
     hp = HyperParams()
     tables = engine.compute_similarities_multi(targets, resident=resident)
-    if resident and len(targets) > 1:
-        # the broker's group-batched finish: one gather and one banded
-        # program for the whole group
+    if resident:
+        # the broker's round: one gather and one banded program for the
+        # whole group
         hps = [h for h, _ in optimize_many(tables, labels, hp)]
         specs = [{"weights": h.weights, "threshold": h.threshold,
                   "near_miss": hp.near_miss_default, "keep_ids": [1],
@@ -198,15 +198,8 @@ def revise_round(engine, targets, labels, resident: bool):
     hps, picks = [], []
     for tbl, lab in zip(tables, labels):
         h, _ = tbl.optimize(lab, hp)
-        if resident:
-            scores = tbl.round_scores(h.weights, h.threshold, hp.near_miss_default,
-                                      keep_ids=[1])
-            if scores is None:  # band overflow: the full-table fallback
-                scores = tbl.to_table().scores(h.weights)
-        else:
-            scores = tbl.scores(h.weights)
         hps.append(h)
-        picks.append(select(scores, h, hp))
+        picks.append(select(tbl.scores(h.weights), h, hp))
     return tables, hps, picks
 
 
