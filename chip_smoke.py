@@ -6,8 +6,9 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    K1, K2, K3, T1, T2 and P1 (kernels/csrc/{query_kernel,
-            tvl1_level,window_warp,inception_block,roll,max_pool3d}.cu)
+2. build    K1, K2, K3, T1, T2, P1 and S1 (kernels/csrc/{query_kernel,
+            tvl1_level,window_warp,inception_block,roll,max_pool3d,
+            stem_conv3d}.cu)
             compiled by nvcc for sm_90a, one process each, all at once.
 2b. cuda    the `cuda` tests, which import no jax: python -m pytest
             --noconftest -p no:cacheprovider -m cuda
@@ -41,8 +42,23 @@ Phases, each printing its own lines; any failure exits non-zero:
             its bound (input read once, output written once), the plain
             version's and F.max_pool3d's on an NCDHW copy (the library
             yardstick, timed only), and their sums over the forward. Then
-            one I3D rgb embed at those shapes, P1's launch counter zeroed
-            before it: 13 launches, and the forward's time.
+            one I3D rgb embed at those shapes, P1's and S1's launch
+            counters zeroed before it: 13 and 1 launches, and the forward's
+            time.
+6c. s1     S1 (I3D's 7x7x7 stride-2 stem conv) against its plain version
+            on the card on one rgb and one flow stem of 8 volumes of 250
+            (249) frames at 224x224 bf16 with a non-zero bias: every output
+            within one bf16 ulp of the plain version's float32 value, give
+            or take the float32 sum's own order (2^-20 of the magnitude of
+            its terms), and the max error. S1's time (CUDA events), its
+            bound (the taps' operations at the bf16 peak), the plain
+            version's, and cuDNN's fused conv + bias + ReLU on the 2x2x2
+            space-to-depth input with the 8x8x8 zero-padded kernel (the
+            library yardstick, timed only; the copies that make its input
+            timed apart); S1's launches are phase 6b's. Then both stems in
+            float32 (TF32 off), which S1 does not take: cuDNN's stride-2
+            conv on the F.pad copy (the port's route) against cuDNN on the
+            space-to-depth input, each with its input's copies.
 7. k2       K2 (TV-L1 level) against its plain version on 400 key pairs at
             each production level (128, 64, 32, 16 px square; window
             max(2, round(6 * 0.5**level)); PRODUCTION_TVL1.at_level), at
@@ -198,7 +214,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             with -B, HOME and XDG_CACHE_HOME in a temporary directory, and an
             import blocker that refuses jax and the JAX package. Then python
             -m videoquery_torch.kernels._build with
-            VIDEOQUERY_TORCH_BUILD_DIR=<tmp>/kernels builds the six
+            VIDEOQUERY_TORCH_BUILD_DIR=<tmp>/kernels builds the seven
             libraries there; the installed broker round (phase 4's: the
             fixture CSVs, seed 42, new -> revise -> finalize on cuda:0) on
             them compiles nothing (its build log is empty), adds no file to
@@ -282,6 +298,8 @@ T2_SOURCE = "videoquery_torch/kernels/csrc/roll.cu"
 T2_REPLACES = "tools/mosaic_roll_repro.py:26"
 P1_SOURCE = "videoquery_torch/kernels/csrc/max_pool3d.cu"
 P1_REPLACES = "none: added for I3D's max pools (videoquery_torch/nn/i3d.py)"
+S1_SOURCE = "videoquery_torch/kernels/csrc/stem_conv3d.cu"
+S1_REPLACES = "none: added for I3D's stem conv, Conv3d_1a_7x7 (videoquery_torch/nn/i3d.py)"
 PEAK_BYTES = 3.35e12                        # H100 SXM HBM3, bytes/s
 PEAK_BF16, PEAK_F32 = 989e12, 67e12         # tensor-core bf16; f32 without
 FLOW_ATOL_PX = 1e-3  # K2 vs plain: same operations in the same order
@@ -983,11 +1001,11 @@ def phase_p1(dev) -> dict:
     """P1 vs its plain version at the 13 pool shapes of one rgb forward of 8
     clips (bf16), -inf and NaN planted, bit for bit; each pool's time, bound,
     plain and library time, and their sums. Then one rgb forward of I3D at
-    those shapes: P1's launches in it, and its time."""
+    those shapes: P1's and S1's launches in it, and its time."""
     import torch
     import torch.nn.functional as F
 
-    from videoquery_torch.kernels import max_pool3d as p1
+    from videoquery_torch.kernels import max_pool3d as p1, stem_conv3d as s1
     from videoquery_torch.nn import i3d
 
     g = torch.Generator(device=dev).manual_seed(23)
@@ -1035,25 +1053,144 @@ def phase_p1(dev) -> dict:
         f"{total['bound_ms']:.3f} ({total['bound_ms'] / total['ms']:.2f} of it), plain "
         f"{total['plain_ms']:.3f}, F.max_pool3d {total['library_ms']:.3f} (CUDA events, mean "
         f"of 10)")
-    # the main path: one rgb forward of the cell's volumes, P1's launches
-    # counted from zero around it
+    # the main path: one rgb forward of the cell's volumes, P1's and S1's
+    # launches counted from zero around it
     net = i3d.InceptionI3d(i3d.init_params(23, i3d.RGB_CHANNELS)).to(dev)
     clips = (torch.rand((8, 250, 224, 224, i3d.RGB_CHANNELS), generator=g, device=dev) * 2
              - 1).to(torch.bfloat16)
     net.embed(clips)                                  # the weights' casts, cuDNN's plans
     torch.cuda.synchronize()
-    p1.LAUNCHES = 0
+    p1.LAUNCHES = s1.LAUNCHES = 0
     net.embed(clips)
     torch.cuda.synchronize()
-    launches = p1.LAUNCHES
-    if launches != 13:
-        raise AssertionError(f"an rgb forward launched P1 {launches} times, not 13")
+    launches, s1_launches = p1.LAUNCHES, s1.LAUNCHES
+    if launches != 13 or s1_launches != 1:
+        raise AssertionError(f"an rgb forward launched P1 {launches} times and S1 "
+                             f"{s1_launches}, not 13 and 1")
     forward_ms = cuda_ms(lambda: net.embed(clips), 3)
-    log(f"[p1] I3D rgb embed, 8 x 250 x 224x224 bf16: {launches} P1 launches a forward; "
-        f"{forward_ms:.2f} ms (CUDA events, mean of 3)")
+    log(f"[p1] I3D rgb embed, 8 x 250 x 224x224 bf16: {launches} P1 launches and "
+        f"{s1_launches} S1 launch a forward; {forward_ms:.2f} ms (CUDA events, mean of 3)")
     del net, clips
     return {**total, "bound_by": "bytes", "pools": rows, "err": err, "launches": launches,
-            "forward_ms": forward_ms}
+            "s1_launches": s1_launches, "forward_ms": forward_ms}
+
+
+# -- phase 6c -----------------------------------------------------------------
+
+def space_to_depth(x, w):
+    """The library yardstick's operands: NCDHW x's SAME padding, 2x2x2
+    space-to-depth ([N, 8 C, out + 3, ...], channels (bt, bh, bw, c)), and
+    the OIDHW 7x7x7 weight zero-padded to 8x8x8 as the 4x4x4 kernel over
+    those channels, both channels-last-3d."""
+    import torch
+    import torch.nn.functional as F
+
+    from videoquery_torch.kernels.max_pool3d import same_padding
+
+    n, c = x.shape[:2]
+    outs, flat = [], []
+    for size in reversed(x.shape[2:]):
+        out = -(-size // 2)
+        before = same_padding(size, 7, 2)[0]
+        flat += [before, 2 * out + 6 - size - before]
+        outs.insert(0, out + 3)
+    t, h, wd = outs
+    xs = F.pad(x, flat).permute(0, 2, 3, 4, 1).reshape(n, t, 2, h, 2, wd, 2, c)
+    xs = xs.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(n, t, h, wd, 8 * c).permute(0, 4, 1, 2, 3)
+    o = w.shape[0]
+    w8 = F.pad(w, (0, 1, 0, 1, 0, 1)).reshape(o, c, 4, 2, 4, 2, 4, 2)
+    ws = w8.permute(0, 3, 5, 7, 1, 2, 4, 6).reshape(o, 8 * c, 4, 4, 4)
+    return (xs.contiguous(memory_format=torch.channels_last_3d),
+            ws.contiguous(memory_format=torch.channels_last_3d))
+
+
+def phase_s1(dev, launches: int) -> dict:
+    """S1 vs its plain version on one rgb and one flow stem of 8 volumes at
+    224x224 (bf16, non-zero bias); each stem's time, bound, plain and
+    library time, and their sums. ``launches`` is S1's count in phase 6b's
+    rgb forward of the cell's volumes. Then the float32 stem on the card,
+    off S1: the port's route (cuDNN's stride-2 conv on the ``F.pad`` copy)
+    against cuDNN on the space-to-depth input, each with its input's copies."""
+    import torch
+
+    from videoquery_torch.kernels import stem_conv3d as s1
+    from videoquery_torch.nn import i3d
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    rows, err = [], 0.0
+    for name, c, frames in (("rgb", 3, 250), ("flow", 2, 249)):
+        x = (torch.rand((8, frames, 224, 224, c), generator=g, device=dev) * 2 - 1).to(
+            torch.bfloat16).permute(0, 4, 1, 2, 3)
+        w = (torch.randn((64, c, 7, 7, 7), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+        b = torch.randn(64, generator=g, device=dev) * 0.1
+        packed = s1.pack_weight(w)
+        got = s1.stem_conv(x, packed, b)
+        want = s1.stem_conv_f32(x, w, b)
+        diff = (got.float() - want).abs()
+        del got
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+        mag = s1.stem_conv_f32(x.abs(), w.abs(), torch.zeros_like(b))
+        outside = int((diff > ulp + mag * 2.0 ** -20).sum())
+        beyond_ulp = int((diff > ulp).sum())
+        err = max(err, float(diff.max()))
+        del want, diff, ulp, mag
+        if outside:
+            raise AssertionError(f"S1 {name}: {outside} outputs beyond one bf16 ulp of the plain "
+                                 f"version's float32 value and its sum's order")
+        xs, ws = space_to_depth(x, w)
+        bb = b.to(torch.bfloat16)
+        flops = 2.0 * 8 * 125 * 112 * 112 * 343 * c * 64
+        rows.append({
+            "name": name, "shape": [8, c, frames, 224, 224], "beyond_one_ulp": beyond_ulp,
+            "ms": cuda_ms(lambda: s1.stem_conv(x, packed, b)),
+            "plain_ms": cuda_ms(lambda: s1.stem_conv_reference(x, w, b), 3),
+            "library_ms": cuda_ms(lambda: torch.cudnn_convolution_relu(
+                xs, ws, bb, (1, 1, 1), (0, 0, 0), (1, 1, 1), 1)),
+            "library_input_ms": cuda_ms(lambda: space_to_depth(x, w)),
+            **bound(2.0 * (x.numel() + 8 * 125 * 112 * 112 * 64 + packed.numel()), flops,
+                    PEAK_BF16)})
+        r = rows[-1]
+        log(f"[s1] {name} stem 8 x {frames} x 224x224 bf16: S1 {r['ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ({r['bound_ms'] / r['ms']:.2f} of it, by {r['bound_by']}), "
+            f"plain {r['plain_ms']:.2f}, cuDNN on the space-to-depth input {r['library_ms']:.3f} "
+            f"(its input's copies {r['library_input_ms']:.3f}); {beyond_ulp} outputs beyond one "
+            f"ulp, all within the sum's order")
+        del x, xs, ws
+        torch.cuda.empty_cache()
+    total = {key: sum(r[key] for r in rows) for key in ("ms", "bound_ms", "plain_ms",
+                                                        "library_ms", "library_input_ms")}
+    log(f"[s1] both stems: S1 {total['ms']:.3f} ms, bound {total['bound_ms']:.3f} "
+        f"({total['bound_ms'] / total['ms']:.2f} of it), plain {total['plain_ms']:.2f}, cuDNN "
+        f"{total['library_ms']:.3f} + {total['library_input_ms']:.3f} (CUDA events; max abs err "
+        f"{err:.3e})")
+    f32 = {}
+    for name, c, frames in (("rgb", 3, 250), ("flow", 2, 249)):
+        x = (torch.rand((8, frames, 224, 224, c), generator=g, device=dev) * 2 - 1).permute(
+            0, 4, 1, 2, 3)
+        w = (torch.randn((64, c, 7, 7, 7), generator=g, device=dev) * 0.05).contiguous(
+            memory_format=torch.channels_last_3d)
+        b = torch.randn(64, generator=g, device=dev) * 0.1
+
+        def port():
+            xp, pad = i3d.conv_input(x, (7, 7, 7), (2, 2, 2))
+            return torch.cudnn_convolution_relu(xp, w, b, (2, 2, 2), pad, (1, 1, 1), 1)
+
+        def space():
+            xs, ws = space_to_depth(x, w)
+            return torch.cudnn_convolution_relu(xs, ws, b, (1, 1, 1), (0, 0, 0), (1, 1, 1), 1)
+
+        diff = float((port() - space()).abs().max())
+        f32[name] = {"ms": cuda_ms(port, 3), "space_to_depth_ms": cuda_ms(space, 3),
+                     "max_abs_diff": diff}
+        r = f32[name]
+        log(f"[s1] {name} stem 8 x {frames} x 224x224 float32, TF32 off: cuDNN stride 2 on the "
+            f"F.pad copy {r['ms']:.2f} ms, cuDNN on the space-to-depth input "
+            f"{r['space_to_depth_ms']:.2f} ms, each with its input's copies (max abs diff "
+            f"{diff:.2e})")
+        del x
+        torch.cuda.empty_cache()
+    return {**total, "bound_by": "operations", "stems": rows, "err": err, "launches": launches,
+            "float32": f32}
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -2640,16 +2777,16 @@ def main() -> int:
 
     from videoquery_torch.core.meshes import initialize_multihost, make_mesh
     from videoquery_torch.kernels import _build, inception_block as t1, query as k1
-    from videoquery_torch.kernels import max_pool3d as p1
+    from videoquery_torch.kernels import max_pool3d as p1, stem_conv3d as s1
     from videoquery_torch.kernels import roll as t2, tvl1_level as k2, window_warp as k3
 
     sources = ("query_kernel.cu", "tvl1_level.cu", "window_warp.cu", "inception_block.cu",
-               "roll.cu", "max_pool3d.cu")
+               "roll.cu", "max_pool3d.cu", "stem_conv3d.cu")
     t0 = time.perf_counter()
     _build.build(sources)
     k1._ENTRY.load(), k2._ENTRY.load(), k3._ENTRY.load(), t1._ENTRY.load(), t2._ENTRY.load()
-    p1._ENTRY.load()
-    log(f"[build] K1, K2, K3, T1, T2, P1 ready in {time.perf_counter() - t0:.1f} s "
+    p1._ENTRY.load(), s1._ENTRY.load()
+    log(f"[build] K1, K2, K3, T1, T2, P1, S1 ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source)")
     for src in sources:
         for line in ptxas_summary(_build.BUILD_LOG.get(src, "")):
@@ -2662,6 +2799,7 @@ def main() -> int:
     query = phase_query(dev)
     warp = phase_k3(dev)
     pool = phase_p1(dev)
+    stem = phase_s1(dev, pool["s1_launches"])
     level = phase_k2(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ext = phase_extract(dev, tmp)
@@ -2817,6 +2955,18 @@ def main() -> int:
         "library_call": "F.max_pool3d on an NCDHW copy, padding=before, ceil_mode",
         "shape": "the 13 pools of one rgb forward, 8 x 250 x 224x224 bf16, summed",
         "pools": pool["pools"], "rgb_forward_ms": pool["forward_ms"],
+    }, {
+        "name": "S1 I3D stem conv, 7x7x7 stride 2, TensorFlow SAME padding, bias and ReLU",
+        "route": "cuda", "source": S1_SOURCE, "replaces": S1_REPLACES,
+        "launches": stem["launches"], "max_abs_err": stem["err"],
+        "ms": stem["ms"], "plain_ms": stem["plain_ms"],
+        "bound_ms": stem["bound_ms"], "bound_by": stem["bound_by"],
+        "library_ms": stem["library_ms"],
+        "library_call": "torch.cudnn_convolution_relu on the 2x2x2 space-to-depth input, the "
+                        "kernel zero-padded to 8x8x8 (its input's copies timed apart)",
+        "library_input_ms": stem["library_input_ms"],
+        "shape": "one rgb (8 x 250) and one flow (8 x 249) stem at 224x224 bf16, summed",
+        "stems": stem["stems"], "float32_off_s1": stem["float32"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

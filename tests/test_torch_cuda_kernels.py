@@ -30,6 +30,7 @@ from videoquery_torch.kernels import inception_block as t1
 from videoquery_torch.kernels import max_pool3d as p1
 from videoquery_torch.kernels import query as k1
 from videoquery_torch.kernels import roll as t2
+from videoquery_torch.kernels import stem_conv3d as s1
 from videoquery_torch.kernels import tvl1_flow
 from videoquery_torch.kernels import tvl1_level as k2
 from videoquery_torch.kernels import window_warp as k3
@@ -759,8 +760,9 @@ def test_a_dispatched_batch_uploads_once_and_waits_once(request, bench_batches, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("channels", [3, 2])
 def test_i3d_on_the_card_against_the_reference(channels):
-    """The card's route through I3D (the fused cuDNN conv + bias + ReLU, the
-    space-to-depth stem, the NHWC pools) against the plain float32 reference
+    """The card's route through I3D (the fused cuDNN conv + bias + ReLU; the
+    stem on S1 in bfloat16, on cuDNN's stride-2 conv in float32; P1's
+    pools) against the plain float32 reference
     on the card, with non-zero biases: float32 at rtol 1e-4 / atol 1e-5
     (another order of sums), bfloat16 under tests/test_torch_i3d.py's 2%
     mean-relative bound."""
@@ -885,3 +887,94 @@ def test_i3d_takes_p1_at_each_of_its_13_pools(dtype, monkeypatch):
     assert rec.counters["i3d.pool_launches"] == 13
     pools = [sp for sp in rec.spans if sp.name == "i3d.pool"]
     assert len(pools) == 13 and all(sp.device_ms is not None for sp in pools)
+
+
+# -- S1: I3D's stem conv --------------------------------------------------------
+
+def s1_case(n, c, size, seed):
+    """A bf16 NDHWC volume [n, *size, c] in [-1, 1) viewed as [N, C, T, H, W]
+    (channels-last-3d, as the net holds it), a bf16 OIDHW weight of the
+    stem's scale and a non-zero float32 bias."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.rand((n,) + size + (c,), generator=g, device="cuda") * 2 - 1).bfloat16()
+    w = (torch.randn(64, c, 7, 7, 7, generator=g, device="cuda") * 0.05).bfloat16()
+    b = torch.randn(64, generator=g, device="cuda") * 0.1
+    return x.permute(0, 4, 1, 2, 3), w, b
+
+
+def s1_agrees(x, w, b) -> None:
+    """One launch of S1, every output within one bf16 ulp of the plain
+    version's float32 value (stem_conv_f32 on the same bf16 operands), give
+    or take that value's own summation order: 2^-20 of the magnitude of
+    its terms, stem_conv_f32(|x|, |w|, 0). The two sum ~1,000 products in
+    float32 in other orders, so near-zero outputs, where the sum cancels,
+    differ by more than their own ulp (seen on an H100: 1e-7 to 1e-6
+    against terms whose magnitudes sum to ~13, some 1e-5 of the outputs)."""
+    launches = s1.LAUNCHES
+    got = s1.stem_conv(x, s1.pack_weight(w), b)
+    torch.cuda.synchronize()
+    assert s1.LAUNCHES == launches + 1
+    want = s1.stem_conv_f32(x, w, b)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+    tol = ulp + s1.stem_conv_f32(x.abs(), w.abs(), torch.zeros_like(b)) * 2.0 ** -20
+    err = (got.float() - want).abs()
+    bad = int((err > tol).sum())
+    assert bad == 0, (tuple(x.shape), bad, float((err / tol).max()))
+
+
+S1_CASES = {3: [(2, (16, 224, 224)), (2, (32, 224, 224)), (1, (9, 33, 32)), (3, (7, 17, 40)),
+                (1, (1, 8, 8)), (2, (5, 31, 64))],
+            2: [(2, (16, 224, 224)), (2, (31, 224, 224)), (1, (15, 63, 65)), (3, (7, 17, 40)),
+                (1, (2, 9, 3)), (2, (5, 31, 66))]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, n, size", [(c, n, size) for c, cases in S1_CASES.items()
+                                        for n, size in cases])
+def test_s1_matches_plain_version(c, n, size):
+    """S1 on 2 volumes of 16-32 frames at 224 x 224 and at odd T, H and W
+    (SAME pads unevenly; flow rows of 4 but not 16 bytes), rgb and flow."""
+    needs_card()
+    s1_agrees(*s1_case(n, c, size, seed=c * 100 + sum(size)))
+
+
+@pytest.mark.cuda
+def test_s1_refuses_what_it_does_not_take():
+    needs_card()
+    x, w, b = s1_case(1, 3, (4, 16, 16), seed=0)
+    packed = s1.pack_weight(w)
+    for bad in (lambda: s1.stem_conv(x.float(), packed.float(), b),
+                lambda: s1.stem_conv(x.contiguous(), packed, b),
+                lambda: s1.stem_conv(x, packed, b.bfloat16()),
+                lambda: s1.stem_conv(s1_case(1, 3, (4, 16, 15), seed=0)[0], packed, b)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 2])
+def test_i3d_takes_s1_at_its_stem(c, monkeypatch):
+    """A bf16 forward on the card launches S1 once, for its stem conv,
+    inside an i3d.stem_conv span with device events, and counts it in
+    i3d.stem_conv_launches; a float32 forward launches none."""
+    needs_card()
+    from videoquery_torch.nn import i3d
+
+    net = i3d.InceptionI3d(i3d.init_params(6, c)).cuda()
+    x = torch.rand(2, 16, 64, 64, c, device="cuda").bfloat16()
+    launches = s1.LAUNCHES
+    net.embed(x)
+    assert s1.LAUNCHES == launches + 1
+    monkeypatch.setattr(profiling, "_state", profiling._State())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        net.embed(x)
+    torch.cuda.synchronize()
+    assert s1.LAUNCHES == launches + 2
+    rec = trace_record()
+    assert rec.counters["i3d.stem_conv_launches"] == 1
+    convs = [sp for sp in rec.spans if sp.name == "i3d.stem_conv"]
+    assert len(convs) == 1 and convs[0].device_ms is not None
+    net.embed(x.float())
+    assert s1.LAUNCHES == launches + 2

@@ -32,6 +32,7 @@ from videoquery_torch.core.config import FLOW, RGB, ExtractionConfig
 from videoquery_torch.index.csvio import read_feature_tree
 from videoquery_torch.index.records import FeatureRecord
 from videoquery_torch.index.store import FeatureIndex
+from videoquery_torch.kernels import stem_conv3d
 from videoquery_torch.nn import i3d
 from videoquery_torch.nn.tsn import StreamEnsemble, TwoStreamTSN
 from videoquery_torch.pipeline import decode
@@ -129,15 +130,16 @@ def test_same_max_pool_at_odd_and_even_sizes(size, k, s):
                                   ((1, 1, 1), (1, 1, 1))])
 def test_same_conv_at_odd_and_even_sizes(size, k, s):
     """The convs pad with zeros, the odd cell at the end (the op's own
-    padding where SAME is even); the stride-2 stem as a space-to-depth
-    conv."""
+    padding where SAME is even); the stride-2 stem as S1's plain version."""
     x = volume((1, 3) + size).contiguous(memory_format=torch.channels_last_3d)
     g = torch.Generator().manual_seed(1)
     w = torch.randn(5, 3, *k, generator=g)
     params = {"c": {"w": w.permute(2, 3, 4, 1, 0).numpy(), "b": np.zeros(5, np.float32)}}
-    xin, pad = i3d.conv_input(x, k, s)
-    wt = w if s == i3d.ONE else i3d.space_to_depth_weight(w)
-    got = torch.relu(torch.nn.functional.conv3d(xin, wt, padding=pad))
+    if s == i3d.ONE:
+        xin, pad = i3d.conv_input(x, k, s)
+        got = torch.relu(torch.nn.functional.conv3d(xin, w, padding=pad))
+    else:
+        got = stem_conv3d.stem_conv_reference(x, w, torch.zeros(5))
     want = ref.unit3d(params, "c", x, s)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
@@ -303,8 +305,12 @@ def test_the_spans_nest_in_a_cpu_trace(tsn, payload, monkeypatch):
     pools = [by_id[s.parent].name for s in ordered if s.name == "i3d.pool"]
     assert pools == (["i3d.stem"] * 2 + ["i3d.mixed"] * 11) * 2
     assert rec.counters["extract.flow_pairs"] == 2 * 15
-    # the CPU takes the plain pool: no kernel launch
+    # the stem conv of each forward, inside the stem
+    convs = [by_id[s.parent].name for s in ordered if s.name == "i3d.stem_conv"]
+    assert convs == ["i3d.stem"] * 2
+    # the CPU takes the plain pool and stem conv: no kernel launch
     assert rec.counters["i3d.pool_launches"] == 0
+    assert rec.counters["i3d.stem_conv_launches"] == 0
 
 
 def test_the_cli_writes_the_i3d_tree(tmp_path, monkeypatch):

@@ -34,13 +34,17 @@ with the bias inside, in bfloat16 rounded once, then the float32 bias
 added and rounded and ReLU (a zero bias, the seeded weights', leaves the
 one rounding).
 
-Two layouts keep the work on fast paths without changing the arithmetic:
+Two hand-written kernels take the layers that cuDNN runs worst:
 
-- ``Conv3d_1a_7x7`` (7x7x7, stride 2) runs as a 4x4x4 stride-1 conv on the
-  2x2x2 space-to-depth of its SAME-padded input, with the kernel zero-
-  padded to 8x8x8: the same products plus zeros, over 8 C channels (24
-  rgb, 16 flow), which cuDNN's tensor cores take; on C = 3 or 2 channels
-  cuDNN falls back to a float32 CUDA-core kernel.
+- ``Conv3d_1a_7x7`` (7x7x7, stride 2, 3 or 2 channels) is one call of
+  ``kernels/stem_conv3d.py`` (S1): in bfloat16 on the card one launch of a
+  wgmma implicit GEMM that reads the NDHWC clip where it lies, SAME's zeros
+  made in the kernel, with the float32 bias added to the float32 sum
+  before the one rounding; on the CPU its plain version (``F.conv3d`` in
+  float32 on an ``F.pad`` copy, then the same bias, ReLU and rounding). Its
+  weight is packed once into S1's layout (``pack_weight``). A float32
+  forward on the card runs the stem as cuDNN's stride-2 conv on the
+  ``F.pad`` copy.
 - A max pool is one call of ``kernels/max_pool3d.py`` (P1): on the card
   one launch of a hand-written NDHWC kernel that reads each input once and
   writes each output once, with SAME's padding computed in the kernel
@@ -51,9 +55,10 @@ Two layouts keep the work on fast paths without changing the arithmetic:
 Spans (``core/profiling.py``): ``i3d.stem`` (``Conv3d_1a_7x7`` through
 ``MaxPool3d_3a_3x3``) and ``i3d.mixed`` (``Mixed_3b`` through ``Mixed_5c``
 with the pools between), each with device events, and inside them
-``i3d.pool`` around each of the 13 pools of a forward. The counter
-``i3d.pool_launches`` counts the pools' kernel launches (13 a forward on
-the card, none on the CPU).
+``i3d.stem_conv`` around the stem conv and ``i3d.pool`` around each of the
+13 pools of a forward. The counters ``i3d.stem_conv_launches`` and
+``i3d.pool_launches`` count S1's and the pools' kernel launches (1 and 13
+a bfloat16 forward on the card, none on the CPU).
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from videoquery_torch.core.profiling import count, span
-from videoquery_torch.kernels import max_pool3d
+from videoquery_torch.kernels import max_pool3d, stem_conv3d
 from videoquery_torch.kernels.max_pool3d import same_padding
 
 NUM_CLASSES = 400        # Kinetics-400
@@ -182,12 +187,9 @@ def init_params(seed: int, in_channels: int = RGB_CHANNELS,
 
 
 def conv_input(x: torch.Tensor, k: tuple, s: tuple) -> tuple[torch.Tensor, tuple]:
-    """(input, padding) of a SAME conv of NCDHW x as the module runs it: a
-    stride-1 conv takes x and the symmetric padding where SAME is even, else
-    x zero-padded by hand (F.pad); the 7x7x7 stride-2 conv takes the
-    space-to-depth input (with ``space_to_depth_weight``)."""
-    if s != ONE:
-        return space_to_depth_input(x), (0, 0, 0)
+    """(input, padding) of a SAME conv of NCDHW x as cuDNN runs it: x and
+    the symmetric padding where SAME is even, else x zero-padded by hand
+    (F.pad)."""
     pads = [same_padding(n, kk, ss) for n, kk, ss in zip(x.shape[2:], k, s)]
     if all(a == b for a, b in pads):
         return x, tuple(a for a, _b in pads)
@@ -195,29 +197,10 @@ def conv_input(x: torch.Tensor, k: tuple, s: tuple) -> tuple[torch.Tensor, tuple
     return F.pad(x, flat), (0, 0, 0)
 
 
-def space_to_depth_input(x: torch.Tensor) -> torch.Tensor:
-    """NCDHW x -> the 2x2x2 space-to-depth of its SAME padding for a 7x7x7
-    stride-2 conv, [N, 8 C, out + 3, ...] with channels (bt, bh, bw, c):
-    the SAME padding before, zeros after up to 2 * out + 6 cells an axis."""
-    n, c = x.shape[:2]
-    outs, flat = [], []
-    for size in reversed(x.shape[2:]):
-        out = -(-size // 2)
-        before = same_padding(size, 7, 2)[0]
-        flat += [before, 2 * out + 6 - size - before]
-        outs.insert(0, out + 3)
-    xp = F.pad(x, flat).permute(0, 2, 3, 4, 1)                 # [N, T2, H2, W2, C]
-    t, h, w = outs
-    y = xp.reshape(n, t, 2, h, 2, w, 2, c).permute(0, 1, 3, 5, 2, 4, 6, 7)
-    return y.reshape(n, t, h, w, 8 * c).permute(0, 4, 1, 2, 3)
-
-
-def space_to_depth_weight(w: torch.Tensor) -> torch.Tensor:
-    """OIDHW 7x7x7 w -> the 4x4x4 kernel over space_to_depth_input's
-    channels: zero-padded to 8x8x8, tap 2a + b of an axis at (b, a)."""
-    o, c = w.shape[:2]
-    w8 = F.pad(w, (0, 1, 0, 1, 0, 1)).reshape(o, c, 4, 2, 4, 2, 4, 2)
-    return w8.permute(0, 3, 5, 7, 1, 2, 4, 6).reshape(o, 8 * c, 4, 4, 4)
+def takes_s1(x: torch.Tensor) -> bool:
+    """Whether the stem conv of x launches S1 (``stem_conv3d.stem_conv``):
+    bfloat16 on the card."""
+    return x.is_cuda and x.dtype == torch.bfloat16
 
 
 # max pool of NCDHW x with SAME padding: P1 on the card, its plain version on
@@ -261,25 +244,34 @@ class InceptionI3d(nn.Module):
             self._cast.clear()
             self._cache_stamp = stamp
 
-    def _weights(self, key: str, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-        """(conv weight, bias) in ``dtype``, channels-last-3d (the stem's
-        weight in its space-to-depth form)."""
+    def _weights(self, key: str, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(conv weight, bias) for input x: in x's dtype, channels-last-3d;
+        the stem's bias in float32, and its weight packed for S1 where
+        ``takes_s1(x)``."""
         device = self.weights[key].device
-        cast = self._cast.get((dtype, device))
+        cast = self._cast.get((x.dtype, device))
         if cast is None:
-            cast = self._cast[(dtype, device)] = {}
+            cast = self._cast[(x.dtype, device)] = {}
             for k, v in self.weights.items():
-                w = v.detach()
-                if self.specs[k.replace("__", "/")][1] != ONE:
-                    w = space_to_depth_weight(w)
-                cast[k] = (w.to(dtype).contiguous(memory_format=torch.channels_last_3d),
-                           self.biases[k].detach().to(dtype))
+                w, b = v.detach().to(x.dtype), self.biases[k].detach()
+                if self.specs[k.replace("__", "/")][1] == ONE:
+                    cast[k] = (w.contiguous(memory_format=torch.channels_last_3d), b.to(x.dtype))
+                elif takes_s1(x):
+                    cast[k] = (stem_conv3d.pack_weight(w), b.float())
+                else:
+                    cast[k] = (w.contiguous(memory_format=torch.channels_last_3d), b.float())
         return cast[key]
 
     def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
         k, s = self.specs[name]
         key = name.replace("/", "__")
-        w, b = self._weights(key, x.dtype)
+        w, b = self._weights(key, x)
+        if s != ONE:
+            with span("i3d.stem_conv", x.device):
+                launches = stem_conv3d.LAUNCHES
+                y = self._stem_conv(x, k, s, w, b)
+                count("i3d.stem_conv_launches", stem_conv3d.LAUNCHES - launches)
+            return y
         x, pad = conv_input(x, k, s)
         if x.is_cuda:
             return torch.cudnn_convolution_relu(x, w, b, ONE, pad, ONE, 1)
@@ -287,6 +279,18 @@ class InceptionI3d(nn.Module):
             return F.relu(F.conv3d(x, w, b, padding=pad), inplace=True)
         y = F.conv3d(x, w, None, padding=pad)       # f32 sums, one rounding
         return y.add_(self.biases[key].view(1, -1, 1, 1, 1)).relu_()
+
+    @staticmethod
+    def _stem_conv(x: torch.Tensor, k: tuple, s: tuple, w: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+        """The stem conv with the float32 bias b: S1 (w packed), the plain
+        version on the CPU, cuDNN's stride-2 conv in float32 on the card."""
+        if takes_s1(x):
+            return stem_conv3d.stem_conv(x, w, b)
+        if not x.is_cuda:
+            return stem_conv3d.stem_conv_reference(x, w, b)
+        x, pad = conv_input(x, k, s)                # float32 on the card
+        return torch.cudnn_convolution_relu(x, w, b, s, pad, ONE, 1)
 
     @staticmethod
     def _pool(x: torch.Tensor, k: tuple, s: tuple) -> torch.Tensor:
