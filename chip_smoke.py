@@ -59,6 +59,15 @@ Phases, each printing its own lines; any failure exits non-zero:
             float32 (TF32 off), which S1 does not take: cuDNN's stride-2
             conv on the F.pad copy (the port's route) against cuDNN on the
             space-to-depth input, each with its input's copies.
+6d. timesformer  TimeSformer-L (nn/timesformer.py) at the published widths
+            on 8 segments of 96 frames of 224x224 in bfloat16 (the
+            extraction cell's batch): one segment against the plain float32
+            reference on the card (mean relative gap under 2%), the
+            forward's time (CUDA events) beside the least time of its
+            products and attention cores (benchmark/flops_timesformer.py),
+            and one traced forward: 24 attention calls
+            (timesformer.sdpa_calls), each a fused SDPA op, and the stream
+            ms of each span kind.
 7. k2       K2 (TV-L1 level) against its plain version on 400 key pairs at
             each production level (128, 64, 32, 16 px square; window
             max(2, round(6 * 0.5**level)); PRODUCTION_TVL1.at_level), at
@@ -1073,6 +1082,65 @@ def phase_p1(dev) -> dict:
     del net, clips
     return {**total, "bound_by": "bytes", "pools": rows, "err": err, "launches": launches,
             "s1_launches": s1_launches, "forward_ms": forward_ms}
+
+
+# -- phase 6d -----------------------------------------------------------------
+
+def phase_timesformer(dev) -> dict:
+    """TimeSformer-L's bf16 forward over the cell's batch: agreement with
+    the float32 reference on one segment, its time against the least time,
+    and a traced forward's attention calls and span times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import flops_timesformer
+    from videoquery_torch.core import profiling
+    from videoquery_torch.nn import timesformer as tf
+    from videoquery_torch.testing import timesformer_reference
+
+    params = tf.make_weights(23)
+    net = tf.TimeSformer(params).to(dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn((8, tf.NUM_FRAMES, tf.CROP, tf.CROP, 3), generator=g, device=dev)
+    want = timesformer_reference.embed(
+        {layer: {k: torch.from_numpy(a).to(dev) for k, a in leaf.items()}
+         for layer, leaf in params.items()}, x[:1])
+    x = x.to(torch.bfloat16)
+    got = net.embed(x)
+    rel = float((got[:1] - want).abs().mean() / want.abs().mean())
+    if not rel < 0.02:
+        raise AssertionError(f"TimeSformer bf16 on the card is {rel:.4f} from the reference")
+    forward_ms = cuda_ms(lambda: net.embed(x), 3)
+    config = {"batch_clips": 8, "num_frames": tf.NUM_FRAMES, "crop_size": tf.CROP,
+              "patch_size": tf.PATCH, "embed_dim": tf.DIM, "num_heads": tf.HEADS,
+              "mlp_dim": tf.MLP_DIM, "depth": tf.DEPTH}
+    least_ms = 1e3 * flops_timesformer.batch_least_time_s(config)
+    sdpa_least_ms = 1e3 * flops_timesformer.sdpa_least_time_s(config)
+    profiling._state = profiling._State()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        net.embed(x)
+    torch.cuda.synchronize()
+    rec = profiling.trace_record()
+    calls = rec.counters.get("timesformer.sdpa_calls", 0)
+    fused = sum(e.count for e in prof.key_averages()
+                if e.key in ("aten::_scaled_dot_product_flash_attention",
+                             "aten::_scaled_dot_product_efficient_attention",
+                             "aten::_scaled_dot_product_cudnn_attention"))
+    if calls != 24 or fused != 24:
+        raise AssertionError(f"a forward made {calls} attention calls, {fused} of them "
+                             "fused, not 24")
+    spans = {name: t["device_ms"] for name, t in rec.totals().items()
+             if name.startswith("timesformer.")}
+    log(f"[timesformer] 8 x 96 x 224^2 bf16: {forward_ms:.2f} ms a forward (CUDA events, "
+        f"mean of 3), least {least_ms:.2f} ({least_ms / forward_ms:.2f} of it); attention "
+        f"cores {spans.get('timesformer.sdpa', 0):.2f} stream ms, least {sdpa_least_ms:.2f}; "
+        f"{calls} fused SDPA calls; one segment {rel:.4f} from the f32 reference")
+    log(f"[timesformer] stream ms by span: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(spans.items())))
+    del net, x
+    torch.cuda.empty_cache()
+    return {"forward_ms": forward_ms, "least_ms": least_ms, "sdpa_least_ms": sdpa_least_ms,
+            "spans_ms": spans, "sdpa_calls": calls, "rel_err": rel}
 
 
 # -- phase 6c -----------------------------------------------------------------
@@ -2800,6 +2868,7 @@ def main() -> int:
     warp = phase_k3(dev)
     pool = phase_p1(dev)
     stem = phase_s1(dev, pool["s1_launches"])
+    timesformer = phase_timesformer(dev)
     level = phase_k2(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ext = phase_extract(dev, tmp)
@@ -2830,6 +2899,7 @@ def main() -> int:
     print(json.dumps({"installed": installed, "roofline": roofline}))
     print(json.dumps({"bench": bench}))
     print(json.dumps({"sharded_serving": serving}))
+    print(json.dumps({"timesformer": timesformer}))
     log(card_line())  # the card and its power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "K1 fused query scoring (avg+counts and scores epilogues)",

@@ -978,3 +978,100 @@ def test_i3d_takes_s1_at_its_stem(c, monkeypatch):
     assert len(convs) == 1 and convs[0].device_ms is not None
     net.embed(x.float())
     assert s1.LAUNCHES == launches + 2
+
+
+# -- TimeSformer: cuBLAS GEMMs and fused SDPA -----------------------------------
+
+FUSED_SDPA_OPS = ("aten::_scaled_dot_product_flash_attention",
+                  "aten::_scaled_dot_product_efficient_attention",
+                  "aten::_scaled_dot_product_cudnn_attention")
+
+
+@pytest.mark.cuda
+def test_timesformer_on_the_card_against_the_reference():
+    """TimeSformer at the published widths (2 blocks, 8 frames of 224x224)
+    on the card against the plain float32 reference on the card: float32
+    (TF32 off, SDPA's memory-efficient backend) at rtol 1e-4 / atol 1e-4 on
+    signatures of unit scale (another order of sums over 768- and 3072-long
+    dots), bfloat16 under tests/test_torch_timesformer.py's 2%
+    mean-relative bound."""
+    needs_card()
+    from videoquery_torch.nn import timesformer as tf
+    from videoquery_torch.testing import timesformer_reference
+
+    params = tf.make_weights(4, depth=2, frames=8)
+    net = tf.TimeSformer(params).cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(2, 8, 224, 224, 3, generator=g, device="cuda")
+    cuda_params = {layer: {k: torch.from_numpy(a).cuda() for k, a in leaf.items()}
+                   for layer, leaf in params.items()}
+    want = timesformer_reference.embed(cuda_params, x)
+    torch.testing.assert_close(net.embed(x), want, rtol=1e-4, atol=1e-4)
+    low = net.embed(x.bfloat16())
+    assert float((low - want).abs().mean() / want.abs().mean()) < 0.02
+
+
+@pytest.mark.cuda
+def test_timesformer_attention_takes_a_fused_sdpa_backend(monkeypatch):
+    """A bf16 forward of the 12 published blocks makes 24 attention calls,
+    each a fused SDPA op inside a timesformer.sdpa span with device events,
+    counted in timesformer.sdpa_calls; an input no fused backend takes
+    (float64) raises instead of falling to the math path."""
+    needs_card()
+    from videoquery_torch.nn import timesformer as tf
+
+    net = tf.TimeSformer(tf.make_weights(5, frames=4)).cuda()
+    x = torch.randn(2, 4, 224, 224, 3, device="cuda").bfloat16()
+    net.embed(x)
+    monkeypatch.setattr(profiling, "_state", profiling._State())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        net.embed(x)
+    torch.cuda.synchronize()
+    rec = trace_record()
+    assert rec.counters["timesformer.sdpa_calls"] == 24
+    sdpa = [sp for sp in rec.spans if sp.name == "timesformer.sdpa"]
+    assert len(sdpa) == 24 and all(sp.device_ms is not None for sp in sdpa)
+    ops = {e.key: e.count for e in prof.key_averages()}
+    assert sum(ops.get(name, 0) for name in FUSED_SDPA_OPS) == 24, \
+        {k: v for k, v in ops.items() if "attention" in k}
+    with pytest.raises(RuntimeError):
+        net.embed(x.double())
+
+
+@pytest.mark.cuda
+def test_timesformer_extractor_runs_two_batches_ahead(monkeypatch):
+    """The rgb-only extractor on the card waits, before it queues a batch,
+    for the batch before last (an extract.inflight_wait span from the third
+    batch on, two events kept), and its signatures equal those of batches
+    dispatched one at a time with a synchronise after each."""
+    needs_card()
+    from videoquery_torch.core.config import ExtractionConfig
+    from videoquery_torch.nn import timesformer as tf
+    from videoquery_torch.nn.tsn import StreamEnsemble, TwoStreamTSN
+    from videoquery_torch.pipeline.extract import Extractor
+    from videoquery_torch.pipeline.payload import build_payload, plan_groups
+
+    cfg = ExtractionConfig(arch="timesformer", fps=4, clip_seconds=4, frame_resize=(88, 64),
+                           crop_size=32, batch_clips=2, num_frames=4)
+    member = tf.TimeSformer(tf.make_weights(6, depth=2, frames=4, crop=32))
+    ex = Extractor(TwoStreamTSN(StreamEnsemble([member], (1,), 3), None), cfg,
+                   device="cuda", dtype="bfloat16")
+    rng = np.random.default_rng(6)
+    payloads = []
+    for _ in range(5):
+        frames = rng.integers(0, 256, (32, 64, 88, 3), dtype=np.uint8)
+        [(group, nums)] = plan_groups(len(frames), cfg)
+        payloads.append(build_payload(frames, None, group, nums, cfg, cfg.flow_res_div))
+    alone = []
+    for p in payloads:
+        alone.append(ex._dispatch_payload(p).rgb.clone())
+        torch.cuda.synchronize()
+    ex._inflight.clear()
+    monkeypatch.setattr(profiling, "_state", profiling._State())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        queued = [ex._dispatch_payload(p) for p in payloads]
+        assert len(ex._inflight) == 2
+    torch.cuda.synchronize()
+    assert trace_record().totals()["extract.inflight_wait"]["calls"] == 3
+    for sig, want in zip(queued, alone):
+        assert sig.flow is None and torch.equal(sig.rgb, want)

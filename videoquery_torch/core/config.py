@@ -144,7 +144,9 @@ class SearchConfig:
     big_round_threshold: int = 50_000
 
 
-EXTRACTION_ARCHS = ("bn_inception", "i3d")
+EXTRACTION_ARCHS = ("bn_inception", "i3d", "timesformer")
+# each architecture's signature width (ExtractionConfig.feature_dim)
+FEATURE_DIMS = {"bn_inception": 1024, "i3d": 1024, "timesformer": 768}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,7 +161,8 @@ class ExtractionConfig:
     flow_stack_depth: int = 5    # flow stack (calcSig_wOF.py:185-189)
     frame_resize: tuple[int, int] = (340, 256)  # (W, H), calcSig_wOF.py:94
     crop_size: int = 224
-    feature_dim: int = 1024
+    # the signature width: the architecture's (FEATURE_DIMS) when None
+    feature_dim: int | None = None
     feature_blob: str = "global_pool"
     flow_bound: float = 20.0     # dense_flow -b 20 (build_wof_clips.py:70-73)
     min_tail_seconds: int = 2    # remainder clip kept iff >= 2 s (build_wof_clips.py:105)
@@ -188,17 +191,30 @@ class ExtractionConfig:
     # batches ahead of the device (2 at least: one in flight, one decoding)
     stream_window_batches: int = 3
     # the networks: "bn_inception" (TSN: num_ticks rgb ticks and flow stacks
-    # of flow_stack_depth pairs a clip) or "i3d" (dense: every frame of the
+    # of flow_stack_depth pairs a clip), "i3d" (dense: every frame of the
     # clip as one rgb volume, every consecutive pair as one flow volume;
-    # num_ticks and flow_stack_depth unused)
+    # num_ticks and flow_stack_depth unused) or "timesformer" (rgb only:
+    # num_frames frames a clip by PySlowFast's linspace rule, one volume; no
+    # flow)
     arch: str = "bn_inception"
+    # frames a clip TimeSformer reads (its time embeddings' count)
+    num_frames: int = 96
 
     def __post_init__(self):
         if self.arch not in EXTRACTION_ARCHS:
             raise ValueError(f"arch must be one of {EXTRACTION_ARCHS}; got {self.arch!r}")
+        dim = FEATURE_DIMS[self.arch]
+        if self.feature_dim is None:
+            object.__setattr__(self, "feature_dim", dim)
+        elif self.feature_dim != dim:
+            raise ValueError(f"arch {self.arch!r} gives {dim}-d signatures; "
+                             f"got feature_dim={self.feature_dim}")
         if self.arch == "i3d" and self.host_gray:
             raise ValueError("the compact uploads (host_gray) carry the tick frames "
                              "only; arch 'i3d' reads every frame")
+        if self.arch == "timesformer" and (self.host_gray or self.host_crop):
+            raise ValueError("arch 'timesformer' uploads its sampled frames whole and "
+                             "computes no flow: host_gray and host_crop do not apply")
         if self.flow_warm_camera not in ("key", "own", "init"):
             raise ValueError(
                 f"flow_warm_camera must be 'key', 'own' or 'init'; "

@@ -1,5 +1,5 @@
 """Temporal Segment Networks: the two-stream ensemble over BN-Inception,
-or over I3D.
+or over I3D; or one rgb stream of TimeSformer.
 
 Port of ``videoquery/nn/tsn.py``. A clip is scored by 6 CNNs: 2 streams
 (rgb, warped optical flow) x 3 UCF101 splits, each applied to the clip's
@@ -8,7 +8,9 @@ one ``BNInception`` per split and runs them in turn on the same batch. The
 same ensembles hold I3D members (``nn/i3d.py``, one a stream: split 1),
 each applied once to the clip's whole volume; a member's ``temporal`` says
 which input it takes, and each constructor builds the member its
-parameters describe.
+parameters describe. TimeSformer (``nn/timesformer.py``) is rgb only: its
+``TwoStreamTSN`` holds no flow stream (``flow`` is None), and its one
+member embeds the volume of a clip's sampled frames in 768 dimensions.
 
 Weights cross from the JAX package with ``from_jax_params`` (per-split
 pytrees of numpy arrays, HWIO convs) or from ``convert_caffe`` npz bundles
@@ -27,38 +29,52 @@ import numpy as np
 import torch
 
 from videoquery_torch.core.device import resolve_device
-from videoquery_torch.nn import bn_inception, i3d
+from videoquery_torch.nn import bn_inception, i3d, timesformer
 from videoquery_torch.nn.bn_inception import BNInception
 from videoquery_torch.nn.convert_caffe import load_npz
 from videoquery_torch.nn.i3d import InceptionI3d
+from videoquery_torch.nn.timesformer import TimeSformer
 
-# architecture -> (init_params, rgb channels, flow channels)
+# architecture -> (init_params, rgb channels, flow channels; None: rgb only)
 ARCHS = {
     "bn_inception": (bn_inception.init_params, bn_inception.RGB_CHANNELS,
                      bn_inception.FLOW_CHANNELS),
     "i3d": (i3d.init_params, i3d.RGB_CHANNELS, i3d.FLOW_CHANNELS),
+    "timesformer": (timesformer.make_weights, timesformer.RGB_CHANNELS, None),
 }
 
+# member class -> architecture
+_MEMBER_ARCHS = {BNInception: "bn_inception", InceptionI3d: "i3d", TimeSformer: "timesformer"}
 
-def _member(tree: Mapping) -> "BNInception | InceptionI3d":
-    """The network a parameter tree describes: I3D's layer names, else
-    BN-Inception's."""
-    return InceptionI3d(tree) if i3d.STEM_CONV in tree else BNInception(tree)
+
+def _member(tree: Mapping) -> "BNInception | InceptionI3d | TimeSformer":
+    """The network a parameter tree describes: I3D's or TimeSformer's layer
+    names, else BN-Inception's."""
+    if i3d.STEM_CONV in tree:
+        return InceptionI3d(tree)
+    return TimeSformer(tree) if timesformer.EMBED in tree else BNInception(tree)
 
 
 @dataclasses.dataclass
 class StreamEnsemble:
-    """One stream's K-split ensemble of BN-Inception or I3D members."""
+    """One stream's K-split ensemble of BN-Inception, I3D or TimeSformer
+    members."""
 
-    nets: "list[BNInception | InceptionI3d]"
+    nets: "list[BNInception | InceptionI3d | TimeSformer]"
     splits: tuple[int, ...]
     in_channels: int
 
     @property
     def temporal(self) -> bool:
-        """Whether the members embed a clip's volume [N, T, H, W, C] (I3D)
-        rather than images [N, H, W, C] (BN-Inception, a tick each)."""
+        """Whether the members embed a clip's volume [N, T, H, W, C] (I3D,
+        TimeSformer) rather than images [N, H, W, C] (BN-Inception, a tick
+        each)."""
         return self.nets[0].temporal
+
+    @property
+    def arch(self) -> str:
+        """The members' architecture (``ARCHS``'s name)."""
+        return _MEMBER_ARCHS[type(self.nets[0])]
 
     @staticmethod
     def from_jax_params(split_params: Mapping[int, Mapping], in_channels: int,
@@ -104,27 +120,32 @@ class StreamEnsemble:
 
     @torch.no_grad()
     def embed(self, frames: torch.Tensor) -> torch.Tensor:
-        """[N, ..., C] -> [K, N, 1024]: images [N, H, W, C] for BN-Inception
-        members, volumes [N, T, H, W, C] for I3D's (``temporal``)."""
+        """[N, ..., C] -> [K, N, D]: images [N, H, W, C] for BN-Inception
+        members, volumes [N, T, H, W, C] for I3D's and TimeSformer's
+        (``temporal``); D is the architecture's width (1024, TimeSformer
+        768)."""
         return torch.stack([net.embed(frames) for net in self.nets])
 
 
 @dataclasses.dataclass
 class TwoStreamTSN:
-    """The full 6-member signature model."""
+    """The full 6-member signature model, or TimeSformer's rgb stream alone
+    (``flow`` None)."""
 
     rgb: StreamEnsemble
-    flow: StreamEnsemble
+    flow: StreamEnsemble | None
 
     @staticmethod
     def random(seed: int = 0, splits=(1, 2, 3), device=None,
                arch: str = "bn_inception") -> "TwoStreamTSN":
         """Seeded random weights (rgb split s: seed + s; flow split s:
         seed + 100 + s) of the architecture's members: BN-Inception (flow
-        stacks of 10 channels) or I3D (flow (u, v), 2 channels)."""
+        stacks of 10 channels), I3D (flow (u, v), 2 channels) or
+        TimeSformer (no flow stream)."""
         _init, rgb_channels, flow_channels = ARCHS[arch]
         return TwoStreamTSN(
             StreamEnsemble.random(seed, rgb_channels, splits, device, arch),
+            None if flow_channels is None else
             StreamEnsemble.random(seed + 100, flow_channels, splits, device, arch))
 
     @staticmethod

@@ -22,6 +22,17 @@ rescue as above, truncated and scaled to [-1, 1] without quantization; each
 stream's one member embeds the whole volume, and its CSV tree carries I3D's
 model directory and weights name.
 
+With ``ExtractionConfig(arch="timesformer")`` the step is rgb only: the
+payload carries the ``num_frames`` frames a clip that PySlowFast's linspace
+rule samples (``pipeline/temporal_sampling.py``), the rgb volume is their
+224 center crops normalised as PySlowFast does, and one TimeSformer member
+(``nn/timesformer.py``) embeds it in 768 dimensions. No gray, flow or
+rescue runs, so nothing in the step waits for the card: on a CUDA device
+``Extractor._dispatch_payload`` waits instead for the batch before last
+before it queues the next (``extract.inflight_wait``), so at most two
+batches and their pinned payloads are in flight. The signatures and the
+CSV tree have no flow member.
+
 and reference-format CSVs from them (calcSig_wOF.py:116-134). On a CUDA
 device the host waits for the card once a batch, to read the rescue's
 choice back after the rgb stream's networks are queued (extract_step; the
@@ -90,10 +101,12 @@ from videoquery_torch.pipeline.preprocess import (preprocess_flow,
                                                   preprocess_flow_i3d,
                                                   preprocess_rgb,
                                                   preprocess_rgb_i3d,
+                                                  preprocess_rgb_timesformer,
                                                   quantize_flow, scale_flow)
 from videoquery_torch.pipeline.sampling import (dense_plan, flow_pair_plan,
                                                 flow_stack_index_matrix,
                                                 flow_warm_plan, frame_ticks)
+from videoquery_torch.pipeline.temporal_sampling import linspace_frames
 
 log = logging.getLogger(__name__)
 
@@ -453,7 +466,9 @@ def _flow_gray_grid(frames_u8: torch.Tensor, flow_res_div: int,
 class StepPlan:
     """Device index arrays of one clip length (cached per length)."""
 
-    tick_idx: torch.Tensor       # [T] 0-based rgb tick frames (I3D: every frame)
+    tick_idx: torch.Tensor       # [T] 0-based rgb tick frames (I3D: every frame;
+                                 # TimeSformer: the sampled frames, which the
+                                 # payload carries alone)
     stack_pos: torch.Tensor | None  # [T, D] positions into pair_idx ("pallas") or
                                  # flow frames (flow_stack_index_matrix, "xla");
                                  # None for I3D, whose flow volume is every pair
@@ -467,12 +482,15 @@ def step_plan(f_len: int, cfg: ExtractionConfig, flow_impl: str, device) -> Step
     and the warm plan (cfg.flow_warm_group > 1); for "xla" the stacks'
     flow frames (flow_stack_index_matrix: pair_idx[stack_pos] clamped,
     the same flow). For I3D (cfg.arch) the dense plan: every frame and
-    every consecutive pair (sampling.dense_plan), "pallas" only."""
+    every consecutive pair (sampling.dense_plan), "pallas" only. For
+    TimeSformer the sampled frames alone, no flow."""
     check_flow_impl(flow_impl)
 
     def dev(a):
         return put_tree(np.asarray(a, np.int64), device)
 
+    if cfg.arch == "timesformer":
+        return StepPlan(dev(linspace_frames(f_len, cfg.num_frames)), None, None, None)
     if cfg.arch == "i3d":
         if flow_impl != "pallas":
             raise ValueError("I3D's dense flow runs on the port's kernels (flow_impl='pallas')")
@@ -499,13 +517,15 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 CSV_NAMES = {
     "bn_inception": ("UCF101_split{split}", "ucf101_split{split}_tsn_{stream}_bn_inception.npz"),
     "i3d": ("Kinetics400_I3D_split{split}", "kinetics400_i3d_{stream}.npz"),
+    "timesformer": ("Kinetics400_TimeSformer_split{split}",
+                    "kinetics400_timesformer_divst_96x4_224_{stream}.npz"),
 }
 
 
 def ensemble_embed(stream: StreamEnsemble, x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """[K, N, 1024] embeddings of a stream's K-split ensemble on x: images
+    """[K, N, D] embeddings of a stream's K-split ensemble on x: images
     [N, H, W, C] for BN-Inception members, volumes [N, T, H, W, C] for
-    I3D's. With a mesh this rank runs only its model shard of the
+    I3D's and TimeSformer's. With a mesh this rank runs only its model shard of the
     splits (``StreamEnsemble.shard``) and an all-gather over "model"
     assembles the K in split order, whatever the axis's size: the JAX
     package's ``_ensemble_embed`` (shard_map, out_specs P(MODEL, DATA)) on
@@ -540,7 +560,12 @@ def _rgb_input(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
     """The rgb net's input [B, T, crop, crop, 3] in ``dtype``: the tick
     frames (gathered here, or by the host with the compact upload, then
     maybe resized, cropped and packed as I420 there too), preprocessed.
-    For I3D the volume of every frame, in RGB order in [-1, 1]."""
+    For I3D the volume of every frame, in RGB order in [-1, 1]; for
+    TimeSformer the volume of the frames the payload carries (the sampled
+    ones), in RGB order, normalised as PySlowFast does."""
+    if cfg.arch == "timesformer":
+        return preprocess_rgb_timesformer(frames_u8, cfg.frame_resize, cfg.crop_size,
+                                          dtype=DTYPES[dtype])
     if cfg.arch == "i3d":
         return preprocess_rgb_i3d(frames_u8[:, plan.tick_idx], cfg.frame_resize,
                                   cfg.crop_size, dtype=DTYPES[dtype])
@@ -586,9 +611,9 @@ def _flow_input(flow_q: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
 
 
 def _stream_embed(stream: StreamEnsemble, x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """A stream's ensemble on its input [B, T, H, W, C] -> f32 [K, B, 1024]:
-    each tick embedded and the ticks averaged, or (I3D: ``temporal``) each
-    clip's volume embedded whole."""
+    """A stream's ensemble on its input [B, T, H, W, C] -> f32 [K, B, D]:
+    each tick embedded and the ticks averaged, or (I3D, TimeSformer:
+    ``temporal``) each clip's volume embedded whole."""
     if stream.temporal:
         return ensemble_embed(stream, x, mesh)
     b, t = x.shape[:2]
@@ -606,9 +631,12 @@ def prepare_step(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
     gray at the flow grid, the flow (the rescue decided at once), the tick
     and stack gathers and the preprocess. Returns the networks' NHWC inputs
     (rgb [B, T, crop, crop, 3], flow [B, T, crop, crop, 10]; I3D's volumes
-    [B, F, crop, crop, 3] and [B, F - 1, crop, crop, 2]) in ``dtype``;
-    embed_step on them gives extract_step's result bit for bit."""
+    [B, F, crop, crop, 3] and [B, F - 1, crop, crop, 2]; TimeSformer's rgb
+    volume and None) in ``dtype``; embed_step on them gives extract_step's
+    result bit for bit."""
     check_flow_impl(flow_impl)
+    if cfg.arch == "timesformer":
+        return _rgb_input(frames_u8, plan, cfg, dtype, True), None
     with span("extract.flow", frames_u8.device):
         gray, vscale = _flow_gray(frames_u8, cfg, gray_u8, native_hw)
         if cfg.arch == "i3d":
@@ -630,11 +658,13 @@ def prepare_step(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
 def embed_step(tsn: TwoStreamTSN, rgb_in: torch.Tensor, flow_in: torch.Tensor,
                mesh=None):
     """The second half of extract_step: both streams' ensembles on
-    prepare_step's inputs, ticks averaged -> (rgb, flow) f32 [K, B, 1024]
+    prepare_step's inputs, ticks averaged -> (rgb, flow) f32 [K, B, D]
     (ensemble_embed: with a mesh, this rank's model shard and the
-    all-gather over "model")."""
+    all-gather over "model"); flow None where there is no flow stream."""
     with span("extract.rgb_net", rgb_in.device):
         rgb = _stream_embed(tsn.rgb, rgb_in, mesh)
+    if flow_in is None:
+        return rgb, None
     with span("extract.flow_net", flow_in.device):
         flow = _stream_embed(tsn.flow, flow_in, mesh)
     return rgb, flow
@@ -647,7 +677,7 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
                  native_hw: tuple[int, int] | None = None, flow_impl: str = "pallas",
                  warm_advect: int = 0, mesh=None, shard: DataShard | None = None):
     """One batch: frames u8 [B, F, H, W, 3] BGR -> (rgb, flow) f32
-    embeddings, each [K, B, 1024]. ``dtype`` ("float32" or "bfloat16") is
+    embeddings, each [K, B, D]. ``dtype`` ("float32" or "bfloat16") is
     the networks' working type; the flow is f32 either way. flow_impl
     "pallas" solves the plan's pairs on K2 and K3 (with its warm plan, and
     warm_advect: _pair_flow_uv), "xla" every pair of the clip on the
@@ -670,8 +700,12 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
     rgb stream's networks, and only then does the host read the choice back
     (``_Rescue``), re-solve the chosen pairs and queue the flow stream. The
     result equals embed_step(prepare_step(...)) bit for bit: the same
-    kernels on the same inputs, queued in another order."""
-    if flow_impl != "pallas" or tvl1.rescue_frac <= 0:
+    kernels on the same inputs, queued in another order.
+
+    TimeSformer (rgb only): frames_u8 holds the clips' sampled frames
+    [B, num_frames, H, W, 3]; the result is (rgb, None), and nothing here
+    waits for the card."""
+    if cfg.arch == "timesformer" or flow_impl != "pallas" or tvl1.rescue_frac <= 0:
         # no rescue to decide: nothing on this path waits for the card
         return embed_step(tsn, *prepare_step(frames_u8, plan, cfg, warped, tvl1, dtype,
                                              gray_u8, native_hw, flow_impl, warm_advect,
@@ -697,17 +731,25 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
 @dataclasses.dataclass
 class ClipSignatures:
     """Per-batch signatures; rgb/flow may be device tensors until
-    gather_signatures downloads them."""
+    gather_signatures downloads them. D is the architecture's width (1024,
+    TimeSformer 768); flow is None for an rgb-only architecture."""
 
     clip_numbers: list[int]
-    rgb: "np.ndarray | torch.Tensor"   # [K, B, 1024]
-    flow: "np.ndarray | torch.Tensor"  # [K, B, 1024]
+    rgb: "np.ndarray | torch.Tensor"          # [K, B, D]
+    flow: "np.ndarray | torch.Tensor | None"  # [K, B, D]
     splits: tuple[int, ...]
+
+    @property
+    def members(self) -> tuple:
+        """(rgb, flow), or (rgb,) without a flow stream."""
+        return (self.rgb,) if self.flow is None else (self.rgb, self.flow)
 
     def materialize(self) -> "ClipSignatures":
         """These signatures as f32 numpy arrays on the host (one download
         each; gather_signatures downloads a list in one copy)."""
         def host(x):
+            if x is None:
+                return None
             if isinstance(x, torch.Tensor):
                 return x.detach().float().cpu().numpy()
             return np.asarray(x, np.float32)
@@ -721,8 +763,9 @@ def gather_signatures(sigs: list[ClipSignatures]) -> list[ClipSignatures]:
     device = [s for s in sigs if isinstance(s.rgb, torch.Tensor)]
     if not device:
         return sigs
-    flat = torch.cat([torch.stack([s.rgb, s.flow]).reshape(2, s.rgb.shape[0], -1)
-                      for s in device], dim=2)                 # [2, K, sum(B)*D]
+    m = len(device[0].members)
+    flat = torch.cat([torch.stack(s.members).reshape(m, s.rgb.shape[0], -1)
+                      for s in device], dim=2)                 # [m, K, sum(B)*D]
     host = flat.float().cpu().numpy()
     out, offset = [], 0
     for s in sigs:
@@ -730,8 +773,9 @@ def gather_signatures(sigs: list[ClipSignatures]) -> list[ClipSignatures]:
             out.append(s)
             continue
         k, b, d = s.rgb.shape
-        chunk = host[:, :, offset:offset + b * d].reshape(2, k, b, d)
-        out.append(ClipSignatures(s.clip_numbers, chunk[0], chunk[1], s.splits))
+        chunk = host[:, :, offset:offset + b * d].reshape(m, k, b, d)
+        out.append(ClipSignatures(s.clip_numbers, chunk[0], chunk[1] if m == 2 else None,
+                                  s.splits))
         offset += b * d
     return out
 
@@ -748,7 +792,14 @@ class Extractor:
     otherwise, as the JAX package's shard_map cannot split them either),
     and every rank gets the whole batch's signatures. The JAX package's
     ``Extractor(mesh=...)``; unlike it, a batch shorter than the data axis
-    (a tail clip) runs, padded with its last clip (ROADMAP §3)."""
+    (a tail clip) runs, padded with its last clip (ROADMAP §3).
+
+    TimeSformer's networks (``ExtractionConfig(arch="timesformer")``) have
+    no flow stream: the extractor then holds no flow state, and on a CUDA
+    device bounds how far the host runs ahead (``_dispatch_payload``)."""
+
+    # batches an rgb-only extractor keeps queued on a CUDA device
+    INFLIGHT = 2
 
     def __init__(self, tsn: TwoStreamTSN, cfg: ExtractionConfig | None = None,
                  warped: bool | None = None, tvl1: TVL1Params | None = None, device=None,
@@ -758,11 +809,13 @@ class Extractor:
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}; got {dtype!r}")
         check_flow_impl(flow_impl)
-        if tsn.rgb.temporal != (self.cfg.arch == "i3d") or \
-                tsn.flow.temporal != tsn.rgb.temporal:
+        streams = (tsn.rgb,) if tsn.flow is None else (tsn.rgb, tsn.flow)
+        if {e.arch for e in streams} != {self.cfg.arch} or \
+                (tsn.flow is None) != (self.cfg.arch == "timesformer"):
             raise ValueError(f"the networks do not match arch {self.cfg.arch!r}")
         if warped is None:
             # each architecture's flow: TSN's warped stream, I3D's plain TV-L1
+            # (TimeSformer has none)
             warped = self.cfg.arch == "bn_inception"
         if (warped and self.cfg.flow_warm_camera == "init"
                 and self.tvl1.camera_model != "homography"):
@@ -793,13 +846,18 @@ class Extractor:
             self._model = model_rank_and_size(mesh)
             # only this rank's model shard of each stream runs here
             # (StreamEnsemble.shard raises unless the axis divides K)
-            local = TwoStreamTSN(tsn.rgb.shard(*self._model), tsn.flow.shard(*self._model))
+            local = TwoStreamTSN(*[None if e is None else e.shard(*self._model)
+                                   for e in (tsn.rgb, tsn.flow)])
         disable_tf32()
-        for net in local.rgb.nets + local.flow.nets:
+        for net in local.rgb.nets + ([] if local.flow is None else local.flow.nets):
             net.to(self.device)
         self.tsn = tsn
         self.warped = warped
         self._plans: dict[int, StepPlan] = {}
+        # an rgb-only step never waits for the card: the events of the
+        # batches in flight, oldest first (_dispatch_payload)
+        self._inflight: list[torch.cuda.Event] | None = (
+            [] if tsn.flow is None and self.device.type == "cuda" else None)
 
     @property
     def writes_output(self) -> bool:
@@ -832,7 +890,10 @@ class Extractor:
         With a mesh only this rank's clips go up, and the whole batch's
         signatures come back by an all-gather over "data", whatever the
         axis's size. On a CUDA device the host waits for the card once a
-        batch, in extract_step."""
+        batch, in extract_step; with no flow stream, which has no such wait,
+        here instead: before it queues a batch, for the batch before last
+        to end (``INFLIGHT``), so the host runs at most two batches and
+        their pinned uploads ahead of the card."""
         clip_rgb, gray = payload.clip_rgb, payload.gray
         shard = None
         if self.mesh is not None:
@@ -842,6 +903,9 @@ class Extractor:
                 clip_rgb = clip_rgb[rows]
                 gray = None if gray is None else gray[rows]
         with span("extract.dispatch"):
+            if self._inflight is not None and len(self._inflight) == self.INFLIGHT:
+                with span("extract.inflight_wait"):
+                    self._inflight.pop(0).synchronize()
             # both payloads are uint8: one pinned buffer, one copy up, queued
             # without a host wait (the JAX package's device_put_tree)
             with span("extract.upload", self.device):
@@ -857,7 +921,12 @@ class Extractor:
             if shard is not None:
                 b = shard.total_rows
                 rgb = all_gather_cat(rgb, shard.group, dim=1)[:, :b]
-                flow = all_gather_cat(flow, shard.group, dim=1)[:, :b]
+                if flow is not None:
+                    flow = all_gather_cat(flow, shard.group, dim=1)[:, :b]
+            if self._inflight is not None:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                self._inflight.append(done)
         return ClipSignatures(payload.nums, rgb, flow, self.tsn.rgb.splits)
 
     def extract_video_stream(self, path: str,
@@ -925,11 +994,11 @@ class Extractor:
                        modelname_fmt: str | None = None,
                        weights_uri_fmt: str | None = None,
                        ) -> list[str]:
-        """One CSV per (split, stream) under <out>/<video>/<modelname>/.
-        The names default to the architecture's (CSV_NAMES); a model
-        directory ends in its split's digit, which the loader reads. With a
-        mesh only the rank at data and model coordinate 0 writes (the
-        others return [])."""
+        """One CSV per (split, stream) under <out>/<video>/<modelname>/ (no
+        flow CSV without a flow stream). The names default to the
+        architecture's (CSV_NAMES); a model directory ends in its split's
+        digit, which the loader reads. With a mesh only the rank at data and
+        model coordinate 0 writes (the others return [])."""
         if not signatures or not self.writes_output:
             return []
         default_model, default_weights = CSV_NAMES[self.cfg.arch]
@@ -940,7 +1009,8 @@ class Extractor:
         for ki, split in enumerate(signatures[0].splits):
             d = os.path.join(out_dir, video, modelname_fmt.format(split=split))
             os.makedirs(d, exist_ok=True)
-            for stream, attr in ((RGB, "rgb"), (FLOW, "flow")):
+            streams = ((RGB, "rgb"), (FLOW, "flow"))[:len(signatures[0].members)]
+            for stream, attr in streams:
                 rows = []
                 for sig in signatures:
                     rows.extend(zip(sig.clip_numbers, getattr(sig, attr)[ki]))
@@ -959,10 +1029,9 @@ class Extractor:
             for ki, split in enumerate(sig.splits):
                 for bi, clip_no in enumerate(sig.clip_numbers):
                     cid = clip_id_of[clip_no] if clip_id_of else clip_no
-                    out.append(FeatureRecord(cid, RGB, split, self.cfg.feature_blob,
-                                             sig.rgb[ki, bi]))
-                    out.append(FeatureRecord(cid, FLOW, split, self.cfg.feature_blob,
-                                             sig.flow[ki, bi]))
+                    for stream, member in zip((RGB, FLOW), sig.members):
+                        out.append(FeatureRecord(cid, stream, split, self.cfg.feature_blob,
+                                                 member[ki, bi]))
         return out
 
 
@@ -972,20 +1041,21 @@ def main(argv=None) -> None:
     import argparse
     import glob
 
-    p = argparse.ArgumentParser(description="Two-stream TSN or I3D feature extraction "
-                                            "(PyTorch/CUDA port)")
+    p = argparse.ArgumentParser(description="Two-stream TSN or I3D, or rgb TimeSformer, "
+                                            "feature extraction (PyTorch/CUDA port)")
     p.add_argument("src", help="video file, directory of videos, or 'synthetic'")
     p.add_argument("--out", required=True, help="output feature-CSV tree root")
     p.add_argument("--weights", default=None,
                    help="npz weight bundle dir (from convert_caffe); random if omitted")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     p.add_argument("--arch", default="bn_inception", choices=sorted(CSV_NAMES),
-                   help="the networks: TSN's BN-Inception, or I3D on dense clips")
+                   help="the networks: TSN's BN-Inception, I3D on dense clips, or "
+                        "TimeSformer-L on 96 sampled frames (rgb only)")
     p.add_argument("--splits", type=int, nargs="+", default=None,
-                   help="default 1 2 3 (bn_inception), 1 (i3d)")
+                   help="default 1 2 3 (bn_inception), 1 (i3d, timesformer)")
     p.add_argument("--num_ticks", type=int, default=25)
     p.add_argument("--fps", type=int, default=None,
-                   help="default 15 (bn_inception), 25 (i3d)")
+                   help="default 15 (bn_inception), 25 (i3d, timesformer)")
     p.add_argument("--clip_time", type=int, default=10)
     p.add_argument("--batch_clips", type=int, default=8)
     p.add_argument("--no-warp", action="store_true", help="plain (unwarped) TV-L1")
@@ -1012,13 +1082,13 @@ def main(argv=None) -> None:
     p.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
                    help="the networks' working type (f32 accumulation either way)")
     args = p.parse_args(argv)
-    i3d = args.arch == "i3d"
-    splits = tuple(args.splits or ([1] if i3d else [1, 2, 3]))
-    if i3d and args.weights:
-        raise SystemExit("--weights: no converter for I3D's Kinetics checkpoints yet; "
-                         "omit it for seeded weights")
+    kinetics = args.arch in ("i3d", "timesformer")
+    splits = tuple(args.splits or ([1] if kinetics else [1, 2, 3]))
+    if kinetics and args.weights:
+        raise SystemExit(f"--weights: no converter for {args.arch}'s Kinetics checkpoints "
+                         "yet; omit it for seeded weights")
 
-    cfg = ExtractionConfig(fps=args.fps or (25 if i3d else 15), clip_seconds=args.clip_time,
+    cfg = ExtractionConfig(fps=args.fps or (25 if kinetics else 15), clip_seconds=args.clip_time,
                            num_ticks=args.num_ticks, batch_clips=args.batch_clips,
                            flow_res_div=args.flow_res_div, host_gray=args.host_gray,
                            host_crop=args.host_crop, host_yuv420=args.host_yuv420,

@@ -11,6 +11,9 @@ I3D's inputs (arXiv:1705.07750, kinetics-i3d; no counterpart in the JAX
 package) take the same resize and crop: rgb in RGB order scaled to [-1, 1]
 (``preprocess_rgb_i3d``), flow truncated to [-bound, bound] and scaled to
 [-1, 1] without quantization (``scale_flow``, ``preprocess_flow_i3d``).
+TimeSformer's rgb input (arXiv:2102.05095, PySlowFast's defaults) takes
+them too: RGB order, ``(x / 255 - 0.45) / 0.225``
+(``preprocess_rgb_timesformer``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from videoquery_torch.core.transfer import device_constant
 # Caffe/TSN ImageNet means, BGR channel order.
 BGR_MEAN = (104.0, 117.0, 123.0)
 FLOW_MEAN = 128.0
+# PySlowFast's DATA.MEAN and DATA.STD (every channel), of x / 255
+SLOWFAST_MEAN, SLOWFAST_STD = 0.45, 0.225
 
 
 @functools.lru_cache(maxsize=64)
@@ -109,6 +114,16 @@ def preprocess_rgb_i3d(frames: torch.Tensor, resize_wh: tuple[int, int] = (340, 
     cast to ``dtype``."""
     x = _resize_crop(frames, resize_wh[0], resize_wh[1], crop_size, crop)
     return (x.flip(-1) / 127.5 - 1.0).to(dtype)
+
+
+def preprocess_rgb_timesformer(frames: torch.Tensor, resize_wh: tuple[int, int] = (340, 256),
+                               crop_size: int = 224, crop: str = "center",
+                               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """BGR frames [..., H, W, 3] -> TimeSformer's input: resized and cropped
+    as preprocess_rgb does, in RGB order, (x / 255 - 0.45) / 0.225,
+    computed in f32 and cast to ``dtype``."""
+    x = _resize_crop(frames, resize_wh[0], resize_wh[1], crop_size, crop)
+    return ((x.flip(-1) / 255.0 - SLOWFAST_MEAN) / SLOWFAST_STD).to(dtype)
 
 
 def scale_flow(flow: torch.Tensor, bound: float = 20.0) -> torch.Tensor:
