@@ -6,9 +6,9 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    K1, K2, K3, T1, T2, P1 and S1 (kernels/csrc/{query_kernel,
+2. build    K1, K2, K3, T1, T2, P1, S1 and N1 (kernels/csrc/{query_kernel,
             tvl1_level,window_warp,inception_block,roll,max_pool3d,
-            stem_conv3d}.cu)
+            stem_conv3d,add_norm}.cu)
             compiled by nvcc for sm_90a, one process each, all at once.
 2b. cuda    the `cuda` tests, which import no jax: python -m pytest
             --noconftest -p no:cacheprovider -m cuda
@@ -66,8 +66,23 @@ Phases, each printing its own lines; any failure exits non-zero:
             forward's time (CUDA events) beside the least time of its
             products and attention cores (benchmark/flops_timesformer.py),
             and one traced forward: 24 attention calls
-            (timesformer.sdpa_calls), each a fused SDPA op, and the stream
-            ms of each span kind.
+            (timesformer.sdpa_calls), each a fused SDPA op, 35 N1 launches
+            (timesformer.add_norm_launches), two PyTorch LayerNorm kernels
+            (block 0's temporal_norm1 and the final norm) and no
+            concatenation, and the stream ms of each span kind
+            (timesformer.add_norm: N1's calls).
+6e. n1      N1 (TimeSformer's residual add and next LayerNorm in one pass)
+            against its plain version on the card at the cell's shapes (8 x
+            18,817 tokens x 768, bf16), in each of its three layouts: x bit
+            for bit but the 8 CLS rows after a space step (within one bf16
+            ulp), z within one bf16 ulp of F.layer_norm's and the share of
+            its elements that differ. Each layout's time (CUDA events), its
+            bound (x and the step's output read once, x and z written once),
+            the plain version's (the op chain it replaced) and the library
+            yardstick's (torch.add, then F.layer_norm, on contiguous rows of
+            x: no layout move; the port never calls it), and each summed
+            over one batch's 35 calls (12 after a time step, 12 after a
+            space step, 11 after an MLP).
 7. k2       K2 (TV-L1 level) against its plain version on 400 key pairs at
             each production level (128, 64, 32, 16 px square; window
             max(2, round(6 * 0.5**level)); PRODUCTION_TVL1.at_level), at
@@ -223,7 +238,7 @@ Phases, each printing its own lines; any failure exits non-zero:
             with -B, HOME and XDG_CACHE_HOME in a temporary directory, and an
             import blocker that refuses jax and the JAX package. Then python
             -m videoquery_torch.kernels._build with
-            VIDEOQUERY_TORCH_BUILD_DIR=<tmp>/kernels builds the seven
+            VIDEOQUERY_TORCH_BUILD_DIR=<tmp>/kernels builds the eight
             libraries there; the installed broker round (phase 4's: the
             fixture CSVs, seed 42, new -> revise -> finalize on cuda:0) on
             them compiles nothing (its build log is empty), adds no file to
@@ -309,6 +324,9 @@ P1_SOURCE = "videoquery_torch/kernels/csrc/max_pool3d.cu"
 P1_REPLACES = "none: added for I3D's max pools (videoquery_torch/nn/i3d.py)"
 S1_SOURCE = "videoquery_torch/kernels/csrc/stem_conv3d.cu"
 S1_REPLACES = "none: added for I3D's stem conv, Conv3d_1a_7x7 (videoquery_torch/nn/i3d.py)"
+N1_SOURCE = "videoquery_torch/kernels/csrc/add_norm.cu"
+N1_REPLACES = ("none: added for TimeSformer's residual adds and LayerNorms "
+               "(videoquery_torch/nn/timesformer.py)")
 PEAK_BYTES = 3.35e12                        # H100 SXM HBM3, bytes/s
 PEAK_BF16, PEAK_F32 = 989e12, 67e12         # tensor-core bf16; f32 without
 FLOW_ATOL_PX = 1e-3  # K2 vs plain: same operations in the same order
@@ -1129,18 +1147,127 @@ def phase_timesformer(dev) -> dict:
     if calls != 24 or fused != 24:
         raise AssertionError(f"a forward made {calls} attention calls, {fused} of them "
                              "fused, not 24")
+    n1_launches = rec.counters.get("timesformer.add_norm_launches", 0)
+    if n1_launches != 35:
+        raise AssertionError(f"a forward launched N1 {n1_launches} times, not 35")
+    # what N1 replaced: PyTorch's LayerNorm is left for block 0's
+    # temporal_norm1 and the final norm, and no concatenation runs
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    norms = sum(bool(re.search(r"layer_?norm", name, re.I)) for name in device_ops)
+    cats = sum("CatArray" in name for name in device_ops)
+    if norms != 2 or cats:
+        raise AssertionError(f"a forward ran {norms} LayerNorm kernels and {cats} "
+                             "concatenations, not 2 and 0")
     spans = {name: t["device_ms"] for name, t in rec.totals().items()
              if name.startswith("timesformer.")}
     log(f"[timesformer] 8 x 96 x 224^2 bf16: {forward_ms:.2f} ms a forward (CUDA events, "
         f"mean of 3), least {least_ms:.2f} ({least_ms / forward_ms:.2f} of it); attention "
         f"cores {spans.get('timesformer.sdpa', 0):.2f} stream ms, least {sdpa_least_ms:.2f}; "
         f"{calls} fused SDPA calls; one segment {rel:.4f} from the f32 reference")
+    log(f"[timesformer] {n1_launches} N1 launches in the traced forward, "
+        f"{spans.get('timesformer.add_norm', 0):.2f} stream ms in timesformer.add_norm; "
+        f"{norms} PyTorch LayerNorm kernels, no concatenation")
     log(f"[timesformer] stream ms by span: "
         + ", ".join(f"{k} {v:.2f}" for k, v in sorted(spans.items())))
     del net, x
     torch.cuda.empty_cache()
     return {"forward_ms": forward_ms, "least_ms": least_ms, "sdpa_least_ms": sdpa_least_ms,
-            "spans_ms": spans, "sdpa_calls": calls, "rel_err": rel}
+            "spans_ms": spans, "sdpa_calls": calls, "n1_launches": n1_launches,
+            "rel_err": rel}
+
+
+# -- phase 6e -----------------------------------------------------------------
+
+# N1's calls a forward of TimeSformer-L by the step whose output it adds
+N1_CALLS = {"time": 12, "space": 12, "mlp": 11}
+
+
+def n1_bytes(after: str, b: int, n: int, t: int, d: int, size: int) -> int:
+    """N1's compulsory bytes: x's rows it changes or reads and the step's
+    output read once, x's changed rows and z written once (weight and bias
+    aside)."""
+    s, nt = 1 + n * t, n * t
+    rows = {"time": 3 * b * nt + b + b * t * (1 + n),
+            "space": b * s + b * t * (1 + n) + 2 * b * s,
+            "mlp": 3 * b * s + b * nt}[after]
+    return rows * d * size
+
+
+def ulp_of(v, mantissa: int):
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126))) - mantissa)
+
+
+def phase_n1(dev, b=8, n=196, t=96, d=768) -> dict:
+    """N1 against its plain version at the cell's shapes in bf16, each
+    layout: agreement, time, bound, plain and library time; summed over a
+    batch's 35 calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from videoquery_torch.kernels import add_norm as n1
+
+    eps, rows, worst = 1e-6, [], {"cls_ulps": 0.0, "z_ulps": 0.0}
+    for after, calls in N1_CALLS.items():
+        g = torch.Generator(device=dev).manual_seed(31 + calls)
+        delta_rows = {"time": b * n * t, "space": b * t * (1 + n), "mlp": b * (1 + n * t)}[after]
+        x = torch.randn(b, 1 + n * t, d, generator=g, device=dev).bfloat16()
+        delta = torch.randn(delta_rows, d, generator=g, device=dev).bfloat16()
+        weight = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).bfloat16()
+        bias = (0.1 * torch.randn(d, generator=g, device=dev)).bfloat16()
+        want_x = x.clone()
+        want = n1.add_norm_reference(want_x, delta, weight, bias, t, after, eps).float()
+        launches = n1.LAUNCHES
+        got = n1.add_norm(x, delta, weight, bias, t, after, eps).float()
+        torch.cuda.synchronize()
+        if n1.LAUNCHES != launches + 1:
+            raise AssertionError("N1 did not launch")
+        if after == "space":
+            cls, want_cls = x[:, 0].float(), want_x[:, 0].float()
+            worst["cls_ulps"] = max(worst["cls_ulps"], float(
+                ((cls - want_cls).abs() / ulp_of(want_cls, 7)).max()))
+            x, want_x = x[:, 1:], want_x[:, 1:]
+        if not torch.equal(x, want_x):
+            raise AssertionError(f"N1 after {after}: x differs from the plain version")
+        # one ulp, give or take the float32 statistics' own order (the
+        # `cuda` test's allowance, tests/test_torch_cuda_kernels.py::n1_agrees)
+        tol = ulp_of(want, 7) + (weight.float().abs() + (want - bias.float()).abs()) * 2.0 ** -16
+        worst["z_ulps"] = max(worst["z_ulps"], float(((got - want).abs() / tol).max()))
+        unequal = float((got != want).float().mean())
+        del got, want, want_x, tol
+        # the library yardstick: x's rows as they lie, no layout move
+        xr = torch.randn(b * (1 + n * t), d, generator=g, device=dev).bfloat16()
+        dr = torch.randn_like(xr)
+        def library():
+            return F.layer_norm(torch.add(xr, dr, out=xr), (d,), weight, bias, eps)
+        x = torch.randn(b, 1 + n * t, d, generator=g, device=dev).bfloat16()
+        rows.append({
+            "after": after, "calls_a_batch": calls, "unequal_share": unequal,
+            "ms": cuda_ms(lambda: n1.add_norm(x, delta, weight, bias, t, after, eps)),
+            "plain_ms": cuda_ms(lambda: n1.add_norm_reference(x, delta, weight, bias, t, after,
+                                                              eps)),
+            "library_ms": cuda_ms(library),
+            **bound(n1_bytes(after, b, n, t, d, 2), 0.0, PEAK_BF16)})
+        r = rows[-1]
+        log(f"[n1] after {after}, {b} x {1 + n * t} x {d} bf16: N1 {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.2f} of it), plain "
+            f"{r['plain_ms']:.4f}, torch.add + F.layer_norm {r['library_ms']:.4f}; z unequal "
+            f"in {unequal:.4%} of its elements")
+        del x, delta, xr, dr
+    total = {key: sum(r[key] * r["calls_a_batch"] for r in rows)
+             for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    if worst["cls_ulps"] > 1 or worst["z_ulps"] > 1:
+        raise AssertionError(f"N1 beyond one bf16 ulp of the plain version: {worst} (z: "
+                             "in units of one ulp and the statistics' allowance)")
+    log(f"[n1] one batch's 35 calls: N1 {total['ms']:.3f} ms, bound {total['bound_ms']:.3f} "
+        f"({total['bound_ms'] / total['ms']:.2f} of it), plain {total['plain_ms']:.3f}, "
+        f"torch.add + F.layer_norm {total['library_ms']:.3f} (CUDA events, mean of 10); "
+        f"worst z {worst['z_ulps']:.2f} of one ulp and the statistics' allowance, the CLS "
+        f"rows {worst['cls_ulps']:.2f} ulp")
+    torch.cuda.empty_cache()
+    return {**total, "bound_by": "bytes", "layouts": rows, "max_ulps": worst}
 
 
 # -- phase 6c -----------------------------------------------------------------
@@ -2845,16 +2972,17 @@ def main() -> int:
 
     from videoquery_torch.core.meshes import initialize_multihost, make_mesh
     from videoquery_torch.kernels import _build, inception_block as t1, query as k1
+    from videoquery_torch.kernels import add_norm as n1
     from videoquery_torch.kernels import max_pool3d as p1, stem_conv3d as s1
     from videoquery_torch.kernels import roll as t2, tvl1_level as k2, window_warp as k3
 
     sources = ("query_kernel.cu", "tvl1_level.cu", "window_warp.cu", "inception_block.cu",
-               "roll.cu", "max_pool3d.cu", "stem_conv3d.cu")
+               "roll.cu", "max_pool3d.cu", "stem_conv3d.cu", "add_norm.cu")
     t0 = time.perf_counter()
     _build.build(sources)
     k1._ENTRY.load(), k2._ENTRY.load(), k3._ENTRY.load(), t1._ENTRY.load(), t2._ENTRY.load()
-    p1._ENTRY.load(), s1._ENTRY.load()
-    log(f"[build] K1, K2, K3, T1, T2, P1, S1 ready in {time.perf_counter() - t0:.1f} s "
+    p1._ENTRY.load(), s1._ENTRY.load(), n1._ENTRY.load()
+    log(f"[build] K1, K2, K3, T1, T2, P1, S1, N1 ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source)")
     for src in sources:
         for line in ptxas_summary(_build.BUILD_LOG.get(src, "")):
@@ -2869,6 +2997,7 @@ def main() -> int:
     pool = phase_p1(dev)
     stem = phase_s1(dev, pool["s1_launches"])
     timesformer = phase_timesformer(dev)
+    norm = phase_n1(dev)
     level = phase_k2(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ext = phase_extract(dev, tmp)
@@ -3037,6 +3166,19 @@ def main() -> int:
         "library_input_ms": stem["library_input_ms"],
         "shape": "one rgb (8 x 250) and one flow (8 x 249) stem at 224x224 bf16, summed",
         "stems": stem["stems"], "float32_off_s1": stem["float32"],
+    }, {
+        "name": "N1 TimeSformer residual add and next LayerNorm, in the next step's layout",
+        "route": "cuda", "source": N1_SOURCE, "replaces": N1_REPLACES,
+        "launches": timesformer["n1_launches"], "max_ulps": norm["max_ulps"],
+        "ms": norm["ms"], "plain_ms": norm["plain_ms"],
+        "bound_ms": norm["bound_ms"], "bound_by": norm["bound_by"],
+        "library_ms": norm["library_ms"],
+        "library_call": "torch.add, then F.layer_norm, on contiguous rows of x (no layout "
+                        "move)",
+        "shape": "one batch's 35 calls, 8 x 18,817 tokens x 768 bf16 (12 after a time "
+                 "step, 12 after a space step, 11 after an MLP), summed",
+        "layouts": norm["layouts"], "timesformer_add_norm_stream_ms":
+            timesformer["spans_ms"].get("timesformer.add_norm"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

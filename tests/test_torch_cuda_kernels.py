@@ -26,6 +26,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from videoquery_torch.core import profiling
 from videoquery_torch.core.profiling import trace_record
 from videoquery_torch.kernels import _launch
+from videoquery_torch.kernels import add_norm as n1
 from videoquery_torch.kernels import inception_block as t1
 from videoquery_torch.kernels import max_pool3d as p1
 from videoquery_torch.kernels import query as k1
@@ -1075,3 +1076,127 @@ def test_timesformer_extractor_runs_two_batches_ahead(monkeypatch):
     assert trace_record().totals()["extract.inflight_wait"]["calls"] == 3
     for sig, want in zip(queued, alone):
         assert sig.flow is None and torch.equal(sig.rgb, want)
+
+
+# -- N1: TimeSformer's residual adds and LayerNorms ------------------------------
+
+N1_EPS = 1e-6
+N1_CASES = [("time", True), ("time", False), ("space", True), ("mlp", True)]
+
+
+def n1_operands(after, dtype, b, n, t, d, seed):
+    """x [b, 1 + n t, d] and the step's output N(0, 1), a LayerNorm's weight
+    1 + N(0, 0.1^2) and bias N(0, 0.1^2), on the card in dtype."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {"time": b * n * t, "space": b * t * (1 + n), "mlp": b * (1 + n * t)}[after]
+    x = torch.randn(b, 1 + n * t, d, generator=g, device="cuda").to(dtype)
+    delta = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+    weight = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+    bias = (0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+    return x, delta, weight, bias
+
+
+def ulp(v, dtype):
+    """One unit in the last place of dtype at |v|."""
+    mantissa = 7 if dtype is torch.bfloat16 else 23
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126))) - mantissa)
+
+
+def n1_agrees(after, x, delta, weight, bias, t) -> float:
+    """One launch of N1 against the plain version: x bit for bit but the CLS
+    rows after a space step, which are within one ulp of x's dtype (the
+    frame mean's float32 sum taken in another order: 2^-20 of its terms'
+    mean magnitude besides); z within one ulp of F.layer_norm's, element by
+    element, give or take the float32 statistics' own summation order
+    (2^-16 of |weight| (1 + rstd |x - mean|): the whole allowance in
+    float32, where one ulp is 2^-23). Returns the share of z's elements
+    that differ."""
+    want_x = x.clone()
+    want = n1.add_norm_reference(want_x, delta, weight, bias, t, after, N1_EPS)
+    launches = n1.LAUNCHES
+    got = n1.add_norm(x, delta, weight, bias, t, after, N1_EPS)
+    torch.cuda.synchronize()
+    assert n1.LAUNCHES == launches + 1
+    assert got.shape == want.shape and got.dtype == x.dtype
+    if after == "space":
+        cls, want_cls = x[:, 0].float(), want_x[:, 0].float()
+        terms = delta.view(x.shape[0], t, -1, x.shape[2])[:, :, 0].float().abs().mean(dim=1)
+        tol = ulp(want_cls, x.dtype) + terms * 2.0 ** -20
+        assert bool(((cls - want_cls).abs() <= tol).all()), float(((cls - want_cls).abs()
+                                                                  / tol).max())
+        x, want_x = x[:, 1:], want_x[:, 1:]
+    assert torch.equal(x, want_x)
+    w, b = weight.float(), bias.float()
+    got, want = got.float(), want.float()
+    tol = ulp(want, weight.dtype) + (w.abs() + (want - b).abs()) * 2.0 ** -16
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), (after, float((err / tol).max()))
+    return float((got != want).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("after", ["time", "space", "mlp"])
+def test_n1_matches_plain_version_at_the_cells_shape(after, dtype):
+    """N1 on TimeSformer-L's residual stream of the cell's batch, 8 x 18,817
+    tokens x 768, in each layout. Measured on an H100 80GB HBM3 (these
+    seeds): z differs from F.layer_norm's in 0.0010% of its elements in
+    bfloat16 (one ulp each) and in 29.8-30.1% in float32 (the statistics'
+    last bits: a two-pass sum against PyTorch's Welford)."""
+    needs_card()
+    x, delta, weight, bias = n1_operands(after, dtype, 8, 196, 96, 768, seed=len(after))
+    share = n1_agrees(after, x, delta, weight, bias, 96)
+    assert share < (1e-4 if dtype is torch.bfloat16 else 0.35), share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, d", [(torch.bfloat16, 64), (torch.bfloat16, 1032),
+                                      (torch.bfloat16, 2048), (torch.float32, 72),
+                                      (torch.float32, 1024)])
+@pytest.mark.parametrize("after, with_delta", N1_CASES)
+def test_n1_at_other_widths(after, with_delta, dtype, d):
+    """N1 at rows of 1 to 8 vectors a lane, part-filled warps, odd N and T,
+    and the time layout without an add (the standalone space step's)."""
+    needs_card()
+    x, delta, weight, bias = n1_operands(after, dtype, 3, 5, 7, d, seed=d)
+    n1_agrees(after, x, delta if with_delta else None, weight, bias, 7)
+
+
+@pytest.mark.cuda
+def test_n1_refuses_what_it_does_not_take():
+    needs_card()
+    wide = n1_operands("mlp", torch.float32, 2, 3, 4, 1032, seed=0)    # rows of 4,128 bytes
+    x, delta, weight, bias = n1_operands("mlp", torch.float32, 2, 3, 4, 64, seed=0)
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)   # 4-byte aligned
+    shifted.copy_(x)
+    launches = n1.LAUNCHES
+    for bad in (lambda: n1.add_norm(*wide, 4, "mlp", N1_EPS),
+                lambda: n1.add_norm(shifted, delta, weight, bias, 4, "mlp", N1_EPS)):
+        with pytest.raises(ValueError):
+            bad()
+    assert n1.LAUNCHES == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_timesformer_takes_n1_35_times_a_forward(dtype, monkeypatch):
+    """A forward of the 12 published blocks launches N1 35 times (3 x 12 - 1),
+    counted by the wrapper and by timesformer.add_norm_launches, each
+    inside a timesformer.add_norm span with device events."""
+    needs_card()
+    from videoquery_torch.nn import timesformer as tf
+
+    net = tf.TimeSformer(tf.make_weights(7, frames=4)).cuda()
+    x = torch.randn(2, 4, 224, 224, 3, device="cuda").to(dtype)
+    launches = n1.LAUNCHES
+    net.embed(x)
+    assert n1.LAUNCHES == launches + 35
+    monkeypatch.setattr(profiling, "_state", profiling._State())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        net.embed(x)
+    torch.cuda.synchronize()
+    assert n1.LAUNCHES == launches + 70
+    rec = trace_record()
+    assert rec.counters["timesformer.add_norm_launches"] == 35
+    calls = [sp for sp in rec.spans if sp.name == "timesformer.add_norm"]
+    assert len(calls) == 35 and all(sp.device_ms is not None for sp in calls)

@@ -18,8 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the flags every earlier build of the port was named with
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
-SOURCES = ("inception_block.cu", "max_pool3d.cu", "query_kernel.cu", "roll.cu",
-           "stem_conv3d.cu", "tvl1_level.cu", "window_warp.cu")
+SOURCES = ("add_norm.cu", "inception_block.cu", "max_pool3d.cu", "query_kernel.cu",
+           "roll.cu", "stem_conv3d.cu", "tvl1_level.cu", "window_warp.cu")
 
 
 def library_name(source: str) -> str:

@@ -26,12 +26,18 @@ The signature is ``norm(x)[CLS]``, the 768-d output of ``forward_features``.
 The residual stream is held as vit.py holds it, [B, 1 + N * T, D] with the
 patches in (h, w, t) order, so the time attention reads its [B * N, T, D]
 groups as a view and only the space attention moves tokens: its [B * T,
-1 + N, D] input is one concatenation of the CLS row and the transposed
-patches, and its result is added back through a transposed view. The net
-runs in the dtype of its input, float32 or bfloat16: the linears are
+1 + N, D] input holds each frame's CLS row and patches, and its result is
+added back in (h, w, t) order. Each step's residual add and the next
+step's LayerNorm are one call of N1 (``kernels/add_norm.py``: the kernel on
+the card, its plain version, the op chain of ``add_``, ``mean``,
+``torch.cat`` and ``F.layer_norm``, on the CPU), which writes the LayerNorm
+in the row order the next step reads: 3 x depth - 1 calls a forward (block
+0's ``temporal_norm1`` follows the embedding and is ``F.layer_norm``; the
+last MLP's output is added in place before the final norm). The net runs
+in the dtype of its input, float32 or bfloat16: the linears are
 ``torch.addmm`` (cuBLAS on the card: bf16 operands, float32 sums, the bias
 added before the one rounding), LayerNorm's statistics and the softmax
-are computed in float32 by PyTorch's kernels, and each attention is one
+are computed in float32, and each attention is one
 ``F.scaled_dot_product_attention`` call with the published scale 64^-0.5.
 On the card every attention call runs under ``sdpa_kernel`` limited to the
 fused backends (flash, cuDNN, memory-efficient): where none of them takes
@@ -48,10 +54,14 @@ entry a layer named after vit.py's modules (``blocks/<i>/temporal_attn/qkv``
 Spans (``core/profiling.py``), each with device events: ``timesformer.embed``
 (the patch projection and the embeddings), and in each of the blocks one
 ``timesformer.time_attn``, one ``timesformer.space_attn`` and one
-``timesformer.mlp``, each holding its LayerNorm, its layout moves and its
-residual add; inside the two attention spans ``timesformer.sdpa`` around the
+``timesformer.mlp``, each opened by the N1 call that completes the step
+before's residual add and writes the step's LayerNorm in its layout (block
+0's time step: its LayerNorm alone; the last MLP also holds its own add);
+inside each N1 call's step span ``timesformer.add_norm`` around that call
+alone, and inside the two attention spans ``timesformer.sdpa`` around the
 attention call alone. The counter ``timesformer.sdpa_calls`` counts the
-attention calls: 2 a block, 24 a forward.
+attention calls: 2 a block, 24 a forward; ``timesformer.add_norm_launches``
+N1's kernel launches: 35 a forward on the card, 0 on the CPU.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from videoquery_torch.core.profiling import count, span
+from videoquery_torch.kernels import add_norm
 
 DIM = 768
 DEPTH = 12
@@ -209,37 +220,69 @@ class TimeSformer(nn.Module):
         count("timesformer.sdpa_calls")
         return self._linear(w, f"{name}/proj", o.transpose(1, 2).reshape(s * length, d))
 
-    def _time_attn(self, w: dict, i: int, x: torch.Tensor, t: int) -> None:
-        """Step 1 of block i on x [B, 1 + N * T, D], in place: the patch
-        tokens attend over their site's T frames."""
-        b, _tokens, d = x.shape
-        with span("timesformer.time_attn", x.device):
-            xp = x[:, 1:]
-            z = self._norm(w, f"blocks/{i}/temporal_norm1", xp)
-            a = self._attention(w, f"blocks/{i}/temporal_attn", z.view(-1, t, d))
-            xp.add_(self._linear(w, f"blocks/{i}/temporal_fc", a).view(b, -1, d))
+    def _add_norm(self, w: dict, name: str, x: torch.Tensor, prev: torch.Tensor | None,
+                  t: int, after: str) -> torch.Tensor:
+        """N1 (``kernels/add_norm.py``): prev, the output of the step
+        ``after``, added to x in place, and LayerNorm ``name`` of the new x
+        in the layout the next step reads."""
+        with span("timesformer.add_norm", x.device):
+            launches = add_norm.LAUNCHES
+            z = add_norm.add_norm(x, prev, w[_key(name, "w")], w[_key(name, "b")], t, after,
+                                  LN_EPS)
+            count("timesformer.add_norm_launches", add_norm.LAUNCHES - launches)
+        return z
 
-    def _space_attn(self, w: dict, i: int, x: torch.Tensor, t: int) -> None:
-        """Step 2 of block i on x, in place: each frame's [CLS; patches]
-        attend over the frame; the CLS token gains the frame mean of its
-        rows, the patches their own."""
+    @staticmethod
+    def _residual(x: torch.Tensor, out: torch.Tensor, t: int, after: str,
+                  defer: bool) -> torch.Tensor | None:
+        """A step's output: returned for the next step's N1 to add (defer),
+        or added to x now."""
+        if defer:
+            return out
+        add_norm.residual_add(x, out, t, after)
+        return None
+
+    def _time_attn(self, w: dict, i: int, x: torch.Tensor, t: int,
+                   prev: torch.Tensor | None = None, defer: bool = False):
+        """Step 1 of block i on x [B, 1 + N * T, D]: the patch tokens attend
+        over their site's T frames. ``prev``, block i - 1's fc2 output, is
+        added by the N1 call that writes ``temporal_norm1``'s output; without
+        it (block 0, after the embedding) that LayerNorm is ``F.layer_norm``.
+        ``temporal_fc``'s output is added in place, or with ``defer``
+        returned for the space step's N1."""
+        d = x.shape[2]
+        with span("timesformer.time_attn", x.device):
+            name = f"blocks/{i}/temporal_norm1"
+            z = (self._norm(w, name, x[:, 1:]) if prev is None
+                 else self._add_norm(w, name, x, prev, t, "mlp"))
+            a = self._attention(w, f"blocks/{i}/temporal_attn", z.view(-1, t, d))
+            return self._residual(x, self._linear(w, f"blocks/{i}/temporal_fc", a), t, "time",
+                                  defer)
+
+    def _space_attn(self, w: dict, i: int, x: torch.Tensor, t: int,
+                    prev: torch.Tensor | None = None, defer: bool = False):
+        """Step 2 of block i on x: each frame's [CLS; patches] attend over
+        the frame. N1 adds ``prev``, the time step's ``temporal_fc`` output
+        (where given), and writes ``norm1``'s output in that layout. The
+        attention's output is added in place (the CLS token gains the frame
+        mean of its rows, the patches their own), or with ``defer`` returned
+        for the MLP's N1."""
         b, tokens, d = x.shape
         n = (tokens - 1) // t
         with span("timesformer.space_attn", x.device):
-            frames = torch.cat([x[:, :1, None].expand(b, t, 1, d),
-                                x[:, 1:].view(b, n, t, d).transpose(1, 2)], dim=2)
-            z = self._norm(w, f"blocks/{i}/norm1", frames)                # [B, T, 1 + N, D]
+            z = self._add_norm(w, f"blocks/{i}/norm1", x, prev, t, "time")  # [B, T, 1 + N, D]
             r = self._attention(w, f"blocks/{i}/attn", z.view(b * t, 1 + n, d))
-            r = r.view(b, t, 1 + n, d)
-            x[:, 0].add_(r[:, :, 0].mean(dim=1))
-            x[:, 1:].view(b, n, t, d).add_(r[:, :, 1:].transpose(1, 2))
+            return self._residual(x, r, t, "space", defer)
 
-    def _mlp(self, w: dict, i: int, x: torch.Tensor) -> None:
-        """Step 3 of block i on x, in place."""
+    def _mlp(self, w: dict, i: int, x: torch.Tensor, t: int, prev: torch.Tensor,
+             defer: bool = False):
+        """Step 3 of block i on x: N1 adds ``prev``, the space attention's
+        output, and writes ``norm2``'s output; fc2's output is added in
+        place, or with ``defer`` returned for block i + 1's N1."""
         with span("timesformer.mlp", x.device):
-            z = self._norm(w, f"blocks/{i}/norm2", x)
+            z = self._add_norm(w, f"blocks/{i}/norm2", x, prev, t, "space")
             h = F.gelu(self._linear(w, f"blocks/{i}/mlp/fc1", z))
-            x.add_(self._linear(w, f"blocks/{i}/mlp/fc2", h).view_as(x))
+            return self._residual(x, self._linear(w, f"blocks/{i}/mlp/fc2", h), t, "mlp", defer)
 
     def _embed_tokens(self, w: dict, x: torch.Tensor) -> torch.Tensor:
         """RGB volumes [B, T, H, W, C] -> tokens [B, 1 + N * T, D], the
@@ -271,10 +314,13 @@ class TimeSformer(nn.Module):
         backends = FUSED_SDPA if x.is_cuda else FUSED_SDPA + [SDPBackend.MATH]
         with sdpa_kernel(backends):
             tokens = self._embed_tokens(w, x)
+            # each step's output is added by the next step's N1 call; the
+            # last MLP's is added in place, before the final norm
+            out = None
             for i in range(self.depth):
-                self._time_attn(w, i, tokens, t)
-                self._space_attn(w, i, tokens, t)
-                self._mlp(w, i, tokens)
+                out = self._time_attn(w, i, tokens, t, out, defer=True)
+                out = self._space_attn(w, i, tokens, t, out, defer=True)
+                out = self._mlp(w, i, tokens, t, out, defer=i + 1 < self.depth)
         emb = self._norm(w, "norm", tokens[:, 0]).float()
         out = {"global_pool": emb}
         if head:
