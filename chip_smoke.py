@@ -83,6 +83,19 @@ Phases, each printing its own lines; any failure exits non-zero:
             x: no layout move; the port never calls it), and each summed
             over one batch's 35 calls (12 after a time step, 12 after a
             space step, 11 after an MLP).
+6f. videoswin  Video Swin-B (nn/video_swin.py) at the published widths on
+            the 12 views (4 clips x 3 crops of 32 x 224^2) of one segment in
+            bfloat16, one forward: one view against the plain float32
+            reference on the card (mean relative gap under 2%), the
+            forward's time (CUDA events) beside the least time of its
+            products and attention cores (benchmark/flops_videoswin.py),
+            and one traced forward: 24 attention calls, 12 under a shift
+            mask, 12 views (the videoswin.* counters), each call's fused
+            SDPA backend by stage, no pad of a mask, and the masks' bytes by
+            stage against windows x heads x 392^2 bf16 a block (the masks
+            are built once for all views). ``python -c "import torch,
+            chip_smoke; chip_smoke.phase_videoswin(torch.device('cuda:0'))"``
+            runs it alone.
 7. k2       K2 (TV-L1 level) against its plain version on 400 key pairs at
             each production level (128, 64, 32, 16 px square; window
             max(2, round(6 * 0.5**level)); PRODUCTION_TVL1.at_level), at
@@ -1175,6 +1188,97 @@ def phase_timesformer(dev) -> dict:
     return {"forward_ms": forward_ms, "least_ms": least_ms, "sdpa_least_ms": sdpa_least_ms,
             "spans_ms": spans, "sdpa_calls": calls, "n1_launches": n1_launches,
             "rel_err": rel}
+
+
+# -- phase 6f -----------------------------------------------------------------
+
+SDPA_BACKEND_OPS = {"aten::_scaled_dot_product_efficient_attention": "efficient",
+                    "aten::_scaled_dot_product_cudnn_attention": "cudnn",
+                    "aten::_scaled_dot_product_flash_attention": "flash"}
+
+
+def phase_videoswin(dev) -> dict:
+    """Video Swin-B's bf16 forward over one segment's 12 views: agreement
+    with the float32 reference on one view, its time against the least
+    time, and a traced forward's counters, SDPA backends and masks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import flops_videoswin
+    from videoquery_torch.core import profiling
+    from videoquery_torch.nn import video_swin as vs
+    from videoquery_torch.testing import videoswin_reference
+
+    params = vs.make_weights(31)
+    net = vs.VideoSwin(params).to(dev)
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn((12, vs.CLIP_LEN, vs.CROP, vs.CROP, 3), generator=g, device=dev)
+    want = videoswin_reference.embed(
+        {layer: {k: torch.from_numpy(a).to(dev) for k, a in leaf.items()}
+         for layer, leaf in params.items()}, x[:1])
+    x = x.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = net.embed(x)
+    rel = float((got[:1] - want).abs().mean() / want.abs().mean())
+    if not rel < 0.02:
+        raise AssertionError(f"Video Swin bf16 on the card is {rel:.4f} from the reference")
+    forward_ms = cuda_ms(lambda: net.embed(x), 3)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    config = {"batch_clips": 1, "num_clips": 4, "num_crops": 3, "clip_len": vs.CLIP_LEN,
+              "crop_size": vs.CROP, "patch_size": list(vs.PATCH), "embed_dim": vs.EMBED_DIM,
+              "depths": list(vs.DEPTHS), "num_heads": list(vs.HEADS),
+              "window_size": list(vs.WINDOW), "mlp_ratio": vs.MLP_RATIO}
+    least_ms = 1e3 * flops_videoswin.batch_least_time_s(config)
+    sdpa_least_ms = 1e3 * flops_videoswin.sdpa_least_time_s(config)
+    profiling._state = profiling._State()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        net.embed(x)
+    torch.cuda.synchronize()
+    rec = profiling.trace_record()
+    counters = {k: v for k, v in rec.counters.items() if k.startswith("videoswin.")}
+    if counters != {"videoswin.views": 12, "videoswin.sdpa_calls": 24,
+                    "videoswin.shifted_calls": 12}:
+        raise AssertionError(f"a forward of 12 views counted {counters}")
+    calls = sorted((e for e in prof.events() if e.name in SDPA_BACKEND_OPS),
+                   key=lambda e: e.time_range.start)
+    if len(calls) != 24:
+        raise AssertionError(f"a forward made {len(calls)} fused attention calls, not 24")
+    backends, first = {}, 0
+    for i, depth in enumerate(vs.DEPTHS):
+        backends[f"stage{i + 1}"] = sorted({SDPA_BACKEND_OPS[e.name]
+                                            for e in calls[first:first + depth]})
+        first += depth
+    pads = sum(e.count for e in prof.key_averages()
+               if e.key in ("aten::constant_pad_nd", "aten::pad"))
+    if pads:
+        raise AssertionError(f"a forward padded {pads} tensors (a mask copied per call?)")
+    masks = net._cast[(torch.bfloat16, x.device)]["bias"]
+    mask_mb, bound_mb = {}, {}
+    for st in flops_videoswin.stages(config):
+        i = len(mask_mb)
+        mask_mb[f"stage{i + 1}"] = sum(b.numel() * b.element_size() for (name, _d), b
+                                       in masks.items() if name.startswith(f"layers/{i}/")) / 1e6
+        bound_mb[f"stage{i + 1}"] = st["depth"] * st["windows"] * st["heads"] * st["n"] ** 2 \
+            * 2 / 1e6
+    if any(mask_mb[k] > bound_mb[k] for k in mask_mb):
+        raise AssertionError(f"the masks hold {mask_mb} MB, more than {bound_mb}")
+    spans = {name: t["device_ms"] for name, t in rec.totals().items()
+             if name.startswith("videoswin.")}
+    log(f"[videoswin] 12 views of 32 x 224^2 bf16: {forward_ms:.2f} ms a forward (CUDA "
+        f"events, mean of 3), least {least_ms:.2f} ({least_ms / forward_ms:.2f} of it); "
+        f"attention cores {spans.get('videoswin.sdpa', 0):.2f} stream ms, least "
+        f"{sdpa_least_ms:.2f}; one view {rel:.4f} from the f32 reference; peak "
+        f"{peak_gb:.2f} GB")
+    log(f"[videoswin] counters {counters}; SDPA backends by stage {backends}; masks MB by "
+        f"stage {mask_mb} (bound {bound_mb}); no pad in the forward")
+    log("[videoswin] stream ms by span: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(spans.items())))
+    del net, x
+    torch.cuda.empty_cache()
+    return {"forward_ms": forward_ms, "least_ms": least_ms, "sdpa_least_ms": sdpa_least_ms,
+            "spans_ms": spans, "counters": counters, "backends": backends,
+            "mask_mb": mask_mb, "mask_bound_mb": bound_mb, "rel_err": rel,
+            "peak_gb": peak_gb}
 
 
 # -- phase 6e -----------------------------------------------------------------
@@ -2998,6 +3102,7 @@ def main() -> int:
     stem = phase_s1(dev, pool["s1_launches"])
     timesformer = phase_timesformer(dev)
     norm = phase_n1(dev)
+    videoswin = phase_videoswin(dev)
     level = phase_k2(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ext = phase_extract(dev, tmp)
@@ -3029,6 +3134,7 @@ def main() -> int:
     print(json.dumps({"bench": bench}))
     print(json.dumps({"sharded_serving": serving}))
     print(json.dumps({"timesformer": timesformer}))
+    print(json.dumps({"videoswin": videoswin}))
     log(card_line())  # the card and its power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": [{
         "name": "K1 fused query scoring (avg+counts and scores epilogues)",

@@ -144,9 +144,11 @@ class SearchConfig:
     big_round_threshold: int = 50_000
 
 
-EXTRACTION_ARCHS = ("bn_inception", "i3d", "timesformer")
+EXTRACTION_ARCHS = ("bn_inception", "i3d", "timesformer", "videoswin")
+# the architectures with an rgb stream alone: no gray, flow or rescue
+RGB_ONLY_ARCHS = ("timesformer", "videoswin")
 # each architecture's signature width (ExtractionConfig.feature_dim)
-FEATURE_DIMS = {"bn_inception": 1024, "i3d": 1024, "timesformer": 768}
+FEATURE_DIMS = {"bn_inception": 1024, "i3d": 1024, "timesformer": 768, "videoswin": 1024}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,12 +195,21 @@ class ExtractionConfig:
     # the networks: "bn_inception" (TSN: num_ticks rgb ticks and flow stacks
     # of flow_stack_depth pairs a clip), "i3d" (dense: every frame of the
     # clip as one rgb volume, every consecutive pair as one flow volume;
-    # num_ticks and flow_stack_depth unused) or "timesformer" (rgb only:
+    # num_ticks and flow_stack_depth unused), "timesformer" (rgb only:
     # num_frames frames a clip by PySlowFast's linspace rule, one volume; no
-    # flow)
+    # flow) or "videoswin" (rgb only: mmaction2's test views, view_clips
+    # volumes of view_clip_len frames x 3 crops a clip, their features
+    # averaged; no flow)
     arch: str = "bn_inception"
     # frames a clip TimeSformer reads (its time embeddings' count)
     num_frames: int = 96
+    # Video Swin's views of a clip: SampleFrames(clip_len=view_clip_len,
+    # frame_interval=view_frame_interval, num_clips=view_clips,
+    # test_mode=True), then Resize(scale=(-1, crop_size)) and
+    # ThreeCrop(crop_size)
+    view_clip_len: int = 32
+    view_frame_interval: int = 2
+    view_clips: int = 4
 
     def __post_init__(self):
         if self.arch not in EXTRACTION_ARCHS:
@@ -212,8 +223,8 @@ class ExtractionConfig:
         if self.arch == "i3d" and self.host_gray:
             raise ValueError("the compact uploads (host_gray) carry the tick frames "
                              "only; arch 'i3d' reads every frame")
-        if self.arch == "timesformer" and (self.host_gray or self.host_crop):
-            raise ValueError("arch 'timesformer' uploads its sampled frames whole and "
+        if self.rgb_only and (self.host_gray or self.host_crop):
+            raise ValueError(f"arch {self.arch!r} uploads its sampled frames whole and "
                              "computes no flow: host_gray and host_crop do not apply")
         if self.flow_warm_camera not in ("key", "own", "init"):
             raise ValueError(
@@ -233,6 +244,11 @@ class ExtractionConfig:
     @property
     def frames_per_clip(self) -> int:
         return self.fps * self.clip_seconds
+
+    @property
+    def rgb_only(self) -> bool:
+        """Whether the networks have an rgb stream alone (RGB_ONLY_ARCHS)."""
+        return self.arch in RGB_ONLY_ARCHS
 
 
 @dataclasses.dataclass(frozen=True)

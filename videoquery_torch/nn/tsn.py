@@ -1,5 +1,5 @@
 """Temporal Segment Networks: the two-stream ensemble over BN-Inception,
-or over I3D; or one rgb stream of TimeSformer.
+or over I3D; or one rgb stream of TimeSformer or of Video Swin.
 
 Port of ``videoquery/nn/tsn.py``. A clip is scored by 6 CNNs: 2 streams
 (rgb, warped optical flow) x 3 UCF101 splits, each applied to the clip's
@@ -11,6 +11,8 @@ which input it takes, and each constructor builds the member its
 parameters describe. TimeSformer (``nn/timesformer.py``) is rgb only: its
 ``TwoStreamTSN`` holds no flow stream (``flow`` is None), and its one
 member embeds the volume of a clip's sampled frames in 768 dimensions.
+Video Swin (``nn/video_swin.py``) is rgb only too: its member embeds each
+of a clip's views in 1,024 dimensions.
 
 Weights cross from the JAX package with ``from_jax_params`` (per-split
 pytrees of numpy arrays, HWIO convs) or from ``convert_caffe`` npz bundles
@@ -29,11 +31,12 @@ import numpy as np
 import torch
 
 from videoquery_torch.core.device import resolve_device
-from videoquery_torch.nn import bn_inception, i3d, timesformer
+from videoquery_torch.nn import bn_inception, i3d, timesformer, video_swin
 from videoquery_torch.nn.bn_inception import BNInception
 from videoquery_torch.nn.convert_caffe import load_npz
 from videoquery_torch.nn.i3d import InceptionI3d
 from videoquery_torch.nn.timesformer import TimeSformer
+from videoquery_torch.nn.video_swin import VideoSwin
 
 # architecture -> (init_params, rgb channels, flow channels; None: rgb only)
 ARCHS = {
@@ -41,34 +44,38 @@ ARCHS = {
                      bn_inception.FLOW_CHANNELS),
     "i3d": (i3d.init_params, i3d.RGB_CHANNELS, i3d.FLOW_CHANNELS),
     "timesformer": (timesformer.make_weights, timesformer.RGB_CHANNELS, None),
+    "videoswin": (video_swin.make_weights, video_swin.RGB_CHANNELS, None),
 }
 
 # member class -> architecture
-_MEMBER_ARCHS = {BNInception: "bn_inception", InceptionI3d: "i3d", TimeSformer: "timesformer"}
+_MEMBER_ARCHS = {BNInception: "bn_inception", InceptionI3d: "i3d", TimeSformer: "timesformer",
+                 VideoSwin: "videoswin"}
 
 
-def _member(tree: Mapping) -> "BNInception | InceptionI3d | TimeSformer":
-    """The network a parameter tree describes: I3D's or TimeSformer's layer
-    names, else BN-Inception's."""
+def _member(tree: Mapping) -> "BNInception | InceptionI3d | TimeSformer | VideoSwin":
+    """The network a parameter tree describes: I3D's, TimeSformer's or
+    Video Swin's layer names, else BN-Inception's."""
     if i3d.STEM_CONV in tree:
         return InceptionI3d(tree)
+    if video_swin.PATCH_EMBED in tree:
+        return VideoSwin(tree)
     return TimeSformer(tree) if timesformer.EMBED in tree else BNInception(tree)
 
 
 @dataclasses.dataclass
 class StreamEnsemble:
-    """One stream's K-split ensemble of BN-Inception, I3D or TimeSformer
-    members."""
+    """One stream's K-split ensemble of BN-Inception, I3D, TimeSformer or
+    Video Swin members."""
 
-    nets: "list[BNInception | InceptionI3d | TimeSformer]"
+    nets: "list[BNInception | InceptionI3d | TimeSformer | VideoSwin]"
     splits: tuple[int, ...]
     in_channels: int
 
     @property
     def temporal(self) -> bool:
         """Whether the members embed a clip's volume [N, T, H, W, C] (I3D,
-        TimeSformer) rather than images [N, H, W, C] (BN-Inception, a tick
-        each)."""
+        TimeSformer, Video Swin) rather than images [N, H, W, C]
+        (BN-Inception, a tick each)."""
         return self.nets[0].temporal
 
     @property
@@ -121,16 +128,16 @@ class StreamEnsemble:
     @torch.no_grad()
     def embed(self, frames: torch.Tensor) -> torch.Tensor:
         """[N, ..., C] -> [K, N, D]: images [N, H, W, C] for BN-Inception
-        members, volumes [N, T, H, W, C] for I3D's and TimeSformer's
-        (``temporal``); D is the architecture's width (1024, TimeSformer
-        768)."""
+        members, volumes [N, T, H, W, C] for I3D's, TimeSformer's and Video
+        Swin's (``temporal``); D is the architecture's width (1024,
+        TimeSformer 768)."""
         return torch.stack([net.embed(frames) for net in self.nets])
 
 
 @dataclasses.dataclass
 class TwoStreamTSN:
-    """The full 6-member signature model, or TimeSformer's rgb stream alone
-    (``flow`` None)."""
+    """The full 6-member signature model, or TimeSformer's or Video Swin's
+    rgb stream alone (``flow`` None)."""
 
     rgb: StreamEnsemble
     flow: StreamEnsemble | None
@@ -140,8 +147,8 @@ class TwoStreamTSN:
                arch: str = "bn_inception") -> "TwoStreamTSN":
         """Seeded random weights (rgb split s: seed + s; flow split s:
         seed + 100 + s) of the architecture's members: BN-Inception (flow
-        stacks of 10 channels), I3D (flow (u, v), 2 channels) or
-        TimeSformer (no flow stream)."""
+        stacks of 10 channels), I3D (flow (u, v), 2 channels), TimeSformer
+        or Video Swin (no flow stream)."""
         _init, rgb_channels, flow_channels = ARCHS[arch]
         return TwoStreamTSN(
             StreamEnsemble.random(seed, rgb_channels, splits, device, arch),

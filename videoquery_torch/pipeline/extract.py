@@ -33,6 +33,16 @@ before it queues the next (``extract.inflight_wait``), so at most two
 batches and their pinned payloads are in flight. The signatures and the
 CSV tree have no flow member.
 
+With ``ExtractionConfig(arch="videoswin")`` the step is rgb only in the
+same way: the payload carries the distinct frames of a clip's views
+(mmaction2's test-mode ``SampleFrames``: ``view_clips`` clips of
+``view_clip_len`` frames, ``pipeline/temporal_sampling.py``), the views are
+gathered on the card from them, resized to a short side of 224, cut into
+``ThreeCrop``'s three crops and normalised (``preprocess_rgb_videoswin``),
+one Video Swin member (``nn/video_swin.py``) embeds the B x 12 volumes in
+one forward, and each clip's signature is the mean of its views' 1,024-d
+features.
+
 and reference-format CSVs from them (calcSig_wOF.py:116-134). On a CUDA
 device the host waits for the card once a batch, to read the rescue's
 choice back after the rgb stream's networks are queued (extract_step; the
@@ -102,11 +112,12 @@ from videoquery_torch.pipeline.preprocess import (preprocess_flow,
                                                   preprocess_rgb,
                                                   preprocess_rgb_i3d,
                                                   preprocess_rgb_timesformer,
+                                                  preprocess_rgb_videoswin,
                                                   quantize_flow, scale_flow)
 from videoquery_torch.pipeline.sampling import (dense_plan, flow_pair_plan,
                                                 flow_stack_index_matrix,
                                                 flow_warm_plan, frame_ticks)
-from videoquery_torch.pipeline.temporal_sampling import linspace_frames
+from videoquery_torch.pipeline.temporal_sampling import linspace_frames, view_frames
 
 log = logging.getLogger(__name__)
 
@@ -468,7 +479,9 @@ class StepPlan:
 
     tick_idx: torch.Tensor       # [T] 0-based rgb tick frames (I3D: every frame;
                                  # TimeSformer: the sampled frames, which the
-                                 # payload carries alone)
+                                 # payload carries alone; Video Swin: [clips, T]
+                                 # positions of the views' frames among the
+                                 # distinct ones the payload carries)
     stack_pos: torch.Tensor | None  # [T, D] positions into pair_idx ("pallas") or
                                  # flow frames (flow_stack_index_matrix, "xla");
                                  # None for I3D, whose flow volume is every pair
@@ -483,7 +496,8 @@ def step_plan(f_len: int, cfg: ExtractionConfig, flow_impl: str, device) -> Step
     flow frames (flow_stack_index_matrix: pair_idx[stack_pos] clamped,
     the same flow). For I3D (cfg.arch) the dense plan: every frame and
     every consecutive pair (sampling.dense_plan), "pallas" only. For
-    TimeSformer the sampled frames alone, no flow."""
+    TimeSformer the sampled frames alone, for Video Swin the views'
+    positions among the payload's frames; no flow."""
     check_flow_impl(flow_impl)
 
     def dev(a):
@@ -491,6 +505,10 @@ def step_plan(f_len: int, cfg: ExtractionConfig, flow_impl: str, device) -> Step
 
     if cfg.arch == "timesformer":
         return StepPlan(dev(linspace_frames(f_len, cfg.num_frames)), None, None, None)
+    if cfg.arch == "videoswin":
+        _frames, positions = view_frames(f_len, cfg.view_clip_len, cfg.view_frame_interval,
+                                         cfg.view_clips)
+        return StepPlan(dev(positions), None, None, None)
     if cfg.arch == "i3d":
         if flow_impl != "pallas":
             raise ValueError("I3D's dense flow runs on the port's kernels (flow_impl='pallas')")
@@ -519,15 +537,18 @@ CSV_NAMES = {
     "i3d": ("Kinetics400_I3D_split{split}", "kinetics400_i3d_{stream}.npz"),
     "timesformer": ("Kinetics400_TimeSformer_split{split}",
                     "kinetics400_timesformer_divst_96x4_224_{stream}.npz"),
+    "videoswin": ("Kinetics400_VideoSwin_split{split}",
+                  "kinetics400_swin_base_patch244_window877_22k_{stream}.npz"),
 }
 
 
 def ensemble_embed(stream: StreamEnsemble, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """[K, N, D] embeddings of a stream's K-split ensemble on x: images
     [N, H, W, C] for BN-Inception members, volumes [N, T, H, W, C] for
-    I3D's and TimeSformer's. With a mesh this rank runs only its model shard of the
-    splits (``StreamEnsemble.shard``) and an all-gather over "model"
-    assembles the K in split order, whatever the axis's size: the JAX
+    I3D's, TimeSformer's and Video Swin's. With a mesh this rank runs only
+    its model shard of the splits (``StreamEnsemble.shard``) and an
+    all-gather over "model" assembles the K in split order, whatever the
+    axis's size: the JAX
     package's ``_ensemble_embed`` (shard_map, out_specs P(MODEL, DATA)) on
     this rank's rows."""
     if mesh is None:
@@ -562,7 +583,12 @@ def _rgb_input(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
     maybe resized, cropped and packed as I420 there too), preprocessed.
     For I3D the volume of every frame, in RGB order in [-1, 1]; for
     TimeSformer the volume of the frames the payload carries (the sampled
-    ones), in RGB order, normalised as PySlowFast does."""
+    ones), in RGB order, normalised as PySlowFast does; for Video Swin its
+    views [B, 3 * clips, T, crop, crop, 3], gathered from the frames the
+    payload carries."""
+    if cfg.arch == "videoswin":
+        return preprocess_rgb_videoswin(frames_u8, plan.tick_idx, cfg.crop_size,
+                                        dtype=DTYPES[dtype])
     if cfg.arch == "timesformer":
         return preprocess_rgb_timesformer(frames_u8, cfg.frame_resize, cfg.crop_size,
                                           dtype=DTYPES[dtype])
@@ -613,8 +639,10 @@ def _flow_input(flow_q: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
 def _stream_embed(stream: StreamEnsemble, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """A stream's ensemble on its input [B, T, H, W, C] -> f32 [K, B, D]:
     each tick embedded and the ticks averaged, or (I3D, TimeSformer:
-    ``temporal``) each clip's volume embedded whole."""
-    if stream.temporal:
+    ``temporal``) each clip's volume embedded whole; Video Swin's views [B,
+    V, T, H, W, C] are averaged as ticks are, the B x V volumes embedded in
+    one call."""
+    if stream.temporal and x.dim() == 5:
         return ensemble_embed(stream, x, mesh)
     b, t = x.shape[:2]
     emb = ensemble_embed(stream, x.reshape((b * t,) + x.shape[2:]), mesh)
@@ -632,10 +660,10 @@ def prepare_step(frames_u8: torch.Tensor, plan: StepPlan, cfg: ExtractionConfig,
     and stack gathers and the preprocess. Returns the networks' NHWC inputs
     (rgb [B, T, crop, crop, 3], flow [B, T, crop, crop, 10]; I3D's volumes
     [B, F, crop, crop, 3] and [B, F - 1, crop, crop, 2]; TimeSformer's rgb
-    volume and None) in ``dtype``; embed_step on them gives extract_step's
-    result bit for bit."""
+    volume, Video Swin's views [B, V, T, crop, crop, 3], and None) in
+    ``dtype``; embed_step on them gives extract_step's result bit for bit."""
     check_flow_impl(flow_impl)
-    if cfg.arch == "timesformer":
+    if cfg.rgb_only:
         return _rgb_input(frames_u8, plan, cfg, dtype, True), None
     with span("extract.flow", frames_u8.device):
         gray, vscale = _flow_gray(frames_u8, cfg, gray_u8, native_hw)
@@ -702,10 +730,10 @@ def extract_step(tsn: TwoStreamTSN, frames_u8: torch.Tensor, plan: StepPlan,
     result equals embed_step(prepare_step(...)) bit for bit: the same
     kernels on the same inputs, queued in another order.
 
-    TimeSformer (rgb only): frames_u8 holds the clips' sampled frames
-    [B, num_frames, H, W, 3]; the result is (rgb, None), and nothing here
-    waits for the card."""
-    if cfg.arch == "timesformer" or flow_impl != "pallas" or tvl1.rescue_frac <= 0:
+    TimeSformer and Video Swin (rgb only): frames_u8 holds the clips'
+    sampled frames [B, U, H, W, 3]; the result is (rgb, None), and nothing
+    here waits for the card."""
+    if cfg.rgb_only or flow_impl != "pallas" or tvl1.rescue_frac <= 0:
         # no rescue to decide: nothing on this path waits for the card
         return embed_step(tsn, *prepare_step(frames_u8, plan, cfg, warped, tvl1, dtype,
                                              gray_u8, native_hw, flow_impl, warm_advect,
@@ -794,9 +822,10 @@ class Extractor:
     ``Extractor(mesh=...)``; unlike it, a batch shorter than the data axis
     (a tail clip) runs, padded with its last clip (ROADMAP §3).
 
-    TimeSformer's networks (``ExtractionConfig(arch="timesformer")``) have
-    no flow stream: the extractor then holds no flow state, and on a CUDA
-    device bounds how far the host runs ahead (``_dispatch_payload``)."""
+    TimeSformer's and Video Swin's networks (``ExtractionConfig(arch=
+    "timesformer")``, ``"videoswin"``) have no flow stream: the extractor
+    then holds no flow state, and on a CUDA device bounds how far the host
+    runs ahead (``_dispatch_payload``)."""
 
     # batches an rgb-only extractor keeps queued on a CUDA device
     INFLIGHT = 2
@@ -811,11 +840,11 @@ class Extractor:
         check_flow_impl(flow_impl)
         streams = (tsn.rgb,) if tsn.flow is None else (tsn.rgb, tsn.flow)
         if {e.arch for e in streams} != {self.cfg.arch} or \
-                (tsn.flow is None) != (self.cfg.arch == "timesformer"):
+                (tsn.flow is None) != self.cfg.rgb_only:
             raise ValueError(f"the networks do not match arch {self.cfg.arch!r}")
         if warped is None:
             # each architecture's flow: TSN's warped stream, I3D's plain TV-L1
-            # (TimeSformer has none)
+            # (TimeSformer and Video Swin have none)
             warped = self.cfg.arch == "bn_inception"
         if (warped and self.cfg.flow_warm_camera == "init"
                 and self.tvl1.camera_model != "homography"):
@@ -1041,21 +1070,23 @@ def main(argv=None) -> None:
     import argparse
     import glob
 
-    p = argparse.ArgumentParser(description="Two-stream TSN or I3D, or rgb TimeSformer, "
-                                            "feature extraction (PyTorch/CUDA port)")
+    p = argparse.ArgumentParser(description="Two-stream TSN or I3D, or rgb TimeSformer or "
+                                            "Video Swin, feature extraction (PyTorch/CUDA "
+                                            "port)")
     p.add_argument("src", help="video file, directory of videos, or 'synthetic'")
     p.add_argument("--out", required=True, help="output feature-CSV tree root")
     p.add_argument("--weights", default=None,
                    help="npz weight bundle dir (from convert_caffe); random if omitted")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     p.add_argument("--arch", default="bn_inception", choices=sorted(CSV_NAMES),
-                   help="the networks: TSN's BN-Inception, I3D on dense clips, or "
-                        "TimeSformer-L on 96 sampled frames (rgb only)")
+                   help="the networks: TSN's BN-Inception, I3D on dense clips, "
+                        "TimeSformer-L on 96 sampled frames, or Video Swin-B on 4 x 3 "
+                        "views of 32 frames (the last two rgb only)")
     p.add_argument("--splits", type=int, nargs="+", default=None,
-                   help="default 1 2 3 (bn_inception), 1 (i3d, timesformer)")
+                   help="default 1 2 3 (bn_inception), 1 (i3d, timesformer, videoswin)")
     p.add_argument("--num_ticks", type=int, default=25)
     p.add_argument("--fps", type=int, default=None,
-                   help="default 15 (bn_inception), 25 (i3d, timesformer)")
+                   help="default 15 (bn_inception), 25 (i3d, timesformer, videoswin)")
     p.add_argument("--clip_time", type=int, default=10)
     p.add_argument("--batch_clips", type=int, default=8)
     p.add_argument("--no-warp", action="store_true", help="plain (unwarped) TV-L1")
@@ -1082,7 +1113,7 @@ def main(argv=None) -> None:
     p.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
                    help="the networks' working type (f32 accumulation either way)")
     args = p.parse_args(argv)
-    kinetics = args.arch in ("i3d", "timesformer")
+    kinetics = args.arch in ("i3d", "timesformer", "videoswin")
     splits = tuple(args.splits or ([1] if kinetics else [1, 2, 3]))
     if kinetics and args.weights:
         raise SystemExit(f"--weights: no converter for {args.arch}'s Kinetics checkpoints "

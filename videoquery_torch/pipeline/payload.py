@@ -4,8 +4,9 @@ A copy of ``videoquery/pipeline/payload.py`` that imports the port's config
 (the JAX module imports ``videoquery.core.config``, whose package pulls in
 jax): clip planning, flow-grid geometry, the payload build in each upload
 layout (all frames; host gray with the tick frames; those frames resized
-and cropped on the host; and packed as YUV 4:2:0; TimeSformer's sampled
-frames alone, a port-only layout), and the constant-memory streaming
+and cropped on the host; and packed as YUV 4:2:0; the sampled frames
+alone of an rgb-only architecture, TimeSformer's or Video Swin's, a
+port-only layout), and the constant-memory streaming
 generator. Nothing in its import chain loads torch, so a decode
 worker process (``pipeline/mpstream.py``) starts with numpy and cv2 alone.
 The device half is ``pipeline/extract.py``."""
@@ -21,7 +22,7 @@ import numpy as np
 from videoquery_torch.core.config import ExtractionConfig
 from videoquery_torch.pipeline import decode
 from videoquery_torch.pipeline.sampling import clip_ranges, frame_ticks
-from videoquery_torch.pipeline.temporal_sampling import linspace_frames
+from videoquery_torch.pipeline.temporal_sampling import linspace_frames, view_frames
 
 log = logging.getLogger(__name__)
 
@@ -75,6 +76,16 @@ class BatchPayload:
         return self.clip_rgb.nbytes + (0 if self.gray is None else self.gray.nbytes)
 
 
+def rgb_only_frames(f_len: int, cfg: ExtractionConfig) -> np.ndarray:
+    """The 0-based frames of a clip of f_len frames that an rgb-only
+    payload carries: TimeSformer's num_frames by PySlowFast's linspace
+    rule; Video Swin's distinct view frames (``view_frames``), sorted."""
+    if cfg.arch == "videoswin":
+        return view_frames(f_len, cfg.view_clip_len, cfg.view_frame_interval,
+                           cfg.view_clips)[0]
+    return linspace_frames(f_len, cfg.num_frames)
+
+
 def build_payload(frames, gray, group, nums, cfg: ExtractionConfig,
                   flow_res_div: int) -> BatchPayload:
     """The host half of a signature batch (see Extractor._dispatch_payload
@@ -89,9 +100,9 @@ def build_payload(frames, gray, group, nums, cfg: ExtractionConfig,
     frame); with cfg.host_gray the tick frames [B, T, H, W, 3] and the gray
     [B, fpc, fh, fw]; with host_crop the tick frames resized and cropped,
     [B, T, crop, crop, 3]; with host_yuv420 those as I420,
-    [B, T, crop * 3 // 2, crop]. For TimeSformer (cfg.arch) the frames it
-    reads alone, [B, cfg.num_frames, H, W, 3] (linspace_frames over each
-    clip's real frames: a tail needs no padding)."""
+    [B, T, crop * 3 // 2, crop]. For an rgb-only architecture (cfg.rgb_only)
+    the frames it reads alone, [B, U, H, W, 3] (``rgb_only_frames`` over
+    each clip's real frames: a tail needs no padding)."""
     f_len = group[0][1] - group[0][0] + 1
     is_arr = isinstance(frames, np.ndarray)
 
@@ -102,8 +113,8 @@ def build_payload(frames, gray, group, nums, cfg: ExtractionConfig,
         return (frames[idxs] if is_arr
                 else np.stack([frames[j] for j in idxs]))
 
-    if cfg.arch == "timesformer":
-        sampled = linspace_frames(f_len, cfg.num_frames)
+    if cfg.rgb_only:
+        sampled = rgb_only_frames(f_len, cfg)
         clip_rgb = np.stack([frame_gather(s - 1 + sampled) for s, _e in group])
         return BatchPayload(list(nums), f_len, clip_rgb, None, None)
     ticks_rgb = frame_ticks(f_len, cfg.num_ticks, 1)
