@@ -9,11 +9,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build    K1, K2, K3, T1, T2, P1, S1 and N1 (kernels/csrc/{query_kernel,
             tvl1_level,window_warp,inception_block,roll,max_pool3d,
             stem_conv3d,add_norm}.cu)
-            compiled by nvcc for sm_90a, one process each, all at once.
+            compiled by nvcc for sm_90a, one process each, all at once;
+            W1 (window_attention.cu) compiles at its first call, in 2b.
 2b. cuda    the `cuda` tests, which import no jax: python -m pytest
             --noconftest -p no:cacheprovider -m cuda
-            tests/test_torch_cuda_kernels.py; every test must pass, none
-            skip.
+            tests/test_torch_cuda_kernels.py
+            tests/test_torch_window_attention.py; every test must pass, none
+            skip, and none be deselected but the second file's CPU tests.
 3. k1       K1 against its plain PyTorch version on the card at Q=16, S=2,
             K=3, D=1024, N=65,536+77 (ragged edge), ~25% mask holes: f32 and
             bf16 index, both epilogues, both target modes; rtol 1e-5 /
@@ -90,10 +92,20 @@ Phases, each printing its own lines; any failure exits non-zero:
             forward's time (CUDA events) beside the least time of its
             products and attention cores (benchmark/flops_videoswin.py),
             and one traced forward: 24 attention calls, 12 under a shift
-            mask, 12 views (the videoswin.* counters), each call's fused
-            SDPA backend by stage, no pad of a mask, and the masks' bytes by
-            stage against windows x heads x 392^2 bf16 a block (the masks
-            are built once for all views). ``python -c "import torch,
+            mask, 24 W1 launches, 12 views (the videoswin.* counters), no
+            SDPA or softmax op and no pad. Then W1 (the window attention
+            kernel) at each stage over the cell's batch of 96 views, an
+            unshifted and a shifted block: its time beside its least time
+            (q, k, v and o at 3.35 TB/s), the plain version's time (8
+            slices of 12 views, each timed, summed) and cuDNN SDPA's on
+            the stored bias and mask (the library yardstick), its whole
+            output against the float32 attention of its inputs, slice by
+            slice, under the cuda tests' bound, and each summed over a
+            forward's 24 blocks; the MUFU's floor of one exponential a
+            logit, computed at the card's top SM clock, is only logged.
+            It runs last: after its W1 stages, torch.profiler traces in
+            the same process have come back empty, so no phase that
+            counts launches follows it. ``python -c "import torch,
             chip_smoke; chip_smoke.phase_videoswin(torch.device('cuda:0'))"``
             runs it alone.
 7. k2       K2 (TV-L1 level) against its plain version on 400 key pairs at
@@ -340,6 +352,9 @@ S1_REPLACES = "none: added for I3D's stem conv, Conv3d_1a_7x7 (videoquery_torch/
 N1_SOURCE = "videoquery_torch/kernels/csrc/add_norm.cu"
 N1_REPLACES = ("none: added for TimeSformer's residual adds and LayerNorms "
                "(videoquery_torch/nn/timesformer.py)")
+W1_SOURCE = "videoquery_torch/kernels/csrc/window_attention.cu"
+W1_REPLACES = ("none: added for Video Swin's window attention "
+               "(videoquery_torch/nn/video_swin.py)")
 PEAK_BYTES = 3.35e12                        # H100 SXM HBM3, bytes/s
 PEAK_BF16, PEAK_F32 = 989e12, 67e12         # tensor-core bf16; f32 without
 FLOW_ATOL_PX = 1e-3  # K2 vs plain: same operations in the same order
@@ -474,24 +489,36 @@ def check_close(name: str, got, want, errs: list) -> None:
 
 # -- phase 2b -----------------------------------------------------------------
 
-CUDA_TESTS = ("tests/test_torch_cuda_kernels.py",)
+CUDA_TESTS = "tests/test_torch_cuda_kernels.py"
+# a file of W1's CPU and cuda tests: its CPU tests are the only ones deselected
+W1_TESTS = "tests/test_torch_window_attention.py"
 
 
 def phase_cuda_tests() -> int:
     """The `cuda` tests in a pytest of their own, without the repository's
     conftest (it imports jax); returns the number that passed. Fails unless
-    pytest exits 0 with every test passed and none skipped."""
-    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
-           "-m", "cuda", *CUDA_TESTS]
+    pytest exits 0 with every test passed, none skipped, and none
+    deselected but W1's file's CPU tests (counted by a collection of that
+    file's tests not marked cuda)."""
+    base = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q"]
+    r = subprocess.run(base + ["--collect-only", "-m", "not cuda", W1_TESTS], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    cpu_tests = sum(1 for ln in r.stdout.splitlines() if ln.startswith(W1_TESTS + "::"))
+    if r.returncode != 0 or not cpu_tests:
+        raise AssertionError(f"could not collect {W1_TESTS}'s CPU tests (exit {r.returncode})"
+                             f":\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    cmd = base + ["-m", "cuda", CUDA_TESTS, W1_TESTS]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
     lines = [ln for ln in r.stdout.strip().splitlines() if ln.strip()]
     summary = lines[-1] if lines else ""
     counts = dict((k, int(n)) for n, k in re.findall(r"(\d+) (\w+)", summary))
     passed = counts.pop("passed", 0)
+    deselected = counts.pop("deselected", 0)
     others = {k: n for k, n in counts.items() if not k.startswith("warning")}
-    log(f"[cuda] {' '.join(cmd[1:])}: {summary} ({time.perf_counter() - t0:.1f} s)")
-    if r.returncode != 0 or not passed or others:
+    log(f"[cuda] {' '.join(cmd[1:])}: {summary} ({time.perf_counter() - t0:.1f} s); "
+        f"{W1_TESTS} holds {cpu_tests} CPU tests")
+    if r.returncode != 0 or not passed or others or deselected != cpu_tests:
         raise AssertionError(f"the cuda tests did not all pass (exit {r.returncode}):\n"
                              + "\n".join(lines[-40:]) + r.stderr[-2000:])
     log(f"[cuda] {passed} cuda tests passed, none skipped")
@@ -1192,15 +1219,107 @@ def phase_timesformer(dev) -> dict:
 
 # -- phase 6f -----------------------------------------------------------------
 
-SDPA_BACKEND_OPS = {"aten::_scaled_dot_product_efficient_attention": "efficient",
-                    "aten::_scaled_dot_product_cudnn_attention": "cudnn",
-                    "aten::_scaled_dot_product_flash_attention": "flash"}
+def exp_rate() -> float:
+    """ex2 a second the MUFU issues at the card's top SM clock (16 a clock
+    an SM, 132 SMs; nvidia-smi's clocks.max.sm): a computed figure."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits", "-i", "0"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return 132 * 16 * float(out.stdout.split()[0]) * 1e6
+
+
+def w1_stages(dev, views: int = 96, plain_views: int = 12) -> list[dict]:
+    """W1 at each published stage of Video Swin-B over the cell's batch
+    (96 views of 32 x 224^2), an unshifted and a shifted block, bf16: its
+    time and least time (q, k, v and o at 3.35 TB/s or the products at 989
+    TFLOP/s), the plain version's time (run on the batch in slices of
+    ``plain_views`` views, each timed, the times summed) and cuDNN SDPA's on
+    the stored [windows x heads, 1, N, N] bias and mask (the library
+    yardstick; the port never calls it); and W1's whole output against the
+    float32 attention of its inputs, slice by slice, under the cuda tests'
+    bound (tests/test_torch_window_attention.py). The MUFU's floor (an
+    exponential a logit) is computed, not measured, and only logged."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from benchmark import flops_videoswin
+    from videoquery_torch.kernels import window_attention as w1
+    from videoquery_torch.nn import video_swin as vs
+
+    config = {"batch_clips": views // 12, "num_clips": 4, "num_crops": 3,
+              "clip_len": vs.CLIP_LEN, "crop_size": vs.CROP, "patch_size": list(vs.PATCH),
+              "embed_dim": vs.EMBED_DIM, "depths": list(vs.DEPTHS),
+              "num_heads": list(vs.HEADS), "window_size": list(vs.WINDOW),
+              "mlp_ratio": vs.MLP_RATIO}
+    rate = exp_rate()
+    rows = []
+    for i, st in enumerate(flops_videoswin.stages(config)):
+        dims, heads, c = st["dims"], st["heads"], st["c"]
+        for shifted in (False, True):
+            nominal = tuple(w // 2 for w in vs.WINDOW) if shifted else (0, 0, 0)
+            window, shift = vs.get_window_size(dims, vs.WINDOW, nominal)
+            n, windows = math.prod(window), st["windows"]
+            g = torch.Generator(device=dev).manual_seed(29 + i)
+            qkv = torch.randn(views * n * windows, 3 * c, generator=g, device=dev).bfloat16()
+            # the model's layout of a block's table: [rows, heads], a head's rows together
+            table = torch.randn(heads, w1.table_rows(vs.WINDOW), generator=g, device=dev).t()
+            index, mask = vs.bias_geometry(dims, window, shift, vs.WINDOW)
+            got = w1.window_attention(qkv, table, views, dims, window, shift, vs.WINDOW)
+            # the batch in slices of plain_views views: rows (view, position, window)
+            step = plain_views * n * windows
+            ratio, err_sum, want_sum, plain_ms = 0.0, 0.0, 0.0, 0.0
+            for lo in range(0, qkv.shape[0], step):
+                part = qkv[lo:lo + step]
+                want = w1.window_attention_reference(part.float(), table.bfloat16().float(),
+                                                     plain_views, index, mask)
+                vmax = part.view(part.shape[0], -1, 3, 32)[:, :, 2].float().abs().max()
+                err = (got[lo:lo + step].float() - want).abs()
+                ratio = max(ratio, float((err / (2.0 ** -8 * (vmax + want.abs()))).max()))
+                err_sum += float(err.sum())
+                want_sum += float(want.abs().sum())
+                del want, err
+                plain_ms += cuda_ms(lambda: w1.window_attention_reference(
+                    part, table, plain_views, index, mask), 3)
+            mean_rel = err_sum / want_sum
+            if not (ratio <= 1 and mean_rel < 2.0 ** -8):
+                raise AssertionError(f"W1 at stage {i + 1} ({'shifted' if shifted else 'plain'})"
+                                     f": {ratio:.3f} of the bound, mean {mean_rel:.2e}")
+            q, k, v = qkv.view(views, n, windows * heads, 3, 32).permute(3, 2, 0, 1, 4).unbind(0)
+            bias = w1.attention_bias(table, index, mask, windows).bfloat16().contiguous()
+            with sdpa_kernel([SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias, scale=32 ** -0.5))
+            seqs = views * windows * heads
+            rows.append({
+                "stage": i + 1, "shifted": shifted, "n": n, "sequences": seqs,
+                "blocks_a_forward": st["depth"] // 2,
+                "ms": cuda_ms(lambda: w1.window_attention(qkv, table, views, dims, window,
+                                                          shift, vs.WINDOW)),
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                **bound(2.0 * 4 * seqs * n * 32, 4.0 * seqs * n * n * 32, PEAK_BF16),
+                "bound_ratio": ratio, "mean_rel_err": mean_rel})
+            r = rows[-1]
+            log(f"[w1] stage {i + 1} {'shifted' if shifted else 'plain'}, {seqs} windows x "
+                f"heads of {n}: W1 {r['ms']:.3f} ms, least {r['bound_ms']:.3f} "
+                f"({r['bound_by']}), exponentials {1e3 * seqs * n * n / rate:.3f} (computed at "
+                f"{rate / 132 / 16 / 1e9:.2f} GHz), plain {plain_ms:.3f} ({views // plain_views}"
+                f" slices of {plain_views} views, summed), cuDNN SDPA on the stored mask "
+                f"{library_ms:.3f}; all {views} views' error {ratio:.3f} of the bound, mean "
+                f"{mean_rel:.2e}")
+            del qkv, q, k, v, bias, got, part
+            torch.cuda.empty_cache()
+    return rows
 
 
 def phase_videoswin(dev) -> dict:
     """Video Swin-B's bf16 forward over one segment's 12 views: agreement
     with the float32 reference on one view, its time against the least
-    time, and a traced forward's counters, SDPA backends and masks."""
+    time, and a traced forward's counters (24 W1 launches, no SDPA op);
+    then W1 stage by stage at the cell's batch, summed over a forward's 24
+    blocks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1237,31 +1356,15 @@ def phase_videoswin(dev) -> dict:
     rec = profiling.trace_record()
     counters = {k: v for k, v in rec.counters.items() if k.startswith("videoswin.")}
     if counters != {"videoswin.views": 12, "videoswin.sdpa_calls": 24,
-                    "videoswin.shifted_calls": 12}:
+                    "videoswin.shifted_calls": 12, "videoswin.window_attn_launches": 24}:
         raise AssertionError(f"a forward of 12 views counted {counters}")
-    calls = sorted((e for e in prof.events() if e.name in SDPA_BACKEND_OPS),
-                   key=lambda e: e.time_range.start)
-    if len(calls) != 24:
-        raise AssertionError(f"a forward made {len(calls)} fused attention calls, not 24")
-    backends, first = {}, 0
-    for i, depth in enumerate(vs.DEPTHS):
-        backends[f"stage{i + 1}"] = sorted({SDPA_BACKEND_OPS[e.name]
-                                            for e in calls[first:first + depth]})
-        first += depth
-    pads = sum(e.count for e in prof.key_averages()
-               if e.key in ("aten::constant_pad_nd", "aten::pad"))
+    ops = {e.key: e.count for e in prof.key_averages()}
+    sdpa = {k: n for k, n in ops.items() if "scaled_dot_product" in k or "softmax" in k}
+    if sdpa:
+        raise AssertionError(f"a forward ran {sdpa}")
+    pads = sum(ops.get(k, 0) for k in ("aten::constant_pad_nd", "aten::pad"))
     if pads:
-        raise AssertionError(f"a forward padded {pads} tensors (a mask copied per call?)")
-    masks = net._cast[(torch.bfloat16, x.device)]["bias"]
-    mask_mb, bound_mb = {}, {}
-    for st in flops_videoswin.stages(config):
-        i = len(mask_mb)
-        mask_mb[f"stage{i + 1}"] = sum(b.numel() * b.element_size() for (name, _d), b
-                                       in masks.items() if name.startswith(f"layers/{i}/")) / 1e6
-        bound_mb[f"stage{i + 1}"] = st["depth"] * st["windows"] * st["heads"] * st["n"] ** 2 \
-            * 2 / 1e6
-    if any(mask_mb[k] > bound_mb[k] for k in mask_mb):
-        raise AssertionError(f"the masks hold {mask_mb} MB, more than {bound_mb}")
+        raise AssertionError(f"a forward padded {pads} tensors")
     spans = {name: t["device_ms"] for name, t in rec.totals().items()
              if name.startswith("videoswin.")}
     log(f"[videoswin] 12 views of 32 x 224^2 bf16: {forward_ms:.2f} ms a forward (CUDA "
@@ -1269,16 +1372,24 @@ def phase_videoswin(dev) -> dict:
         f"attention cores {spans.get('videoswin.sdpa', 0):.2f} stream ms, least "
         f"{sdpa_least_ms:.2f}; one view {rel:.4f} from the f32 reference; peak "
         f"{peak_gb:.2f} GB")
-    log(f"[videoswin] counters {counters}; SDPA backends by stage {backends}; masks MB by "
-        f"stage {mask_mb} (bound {bound_mb}); no pad in the forward")
+    log(f"[videoswin] counters {counters}; no SDPA op and no pad in the forward")
     log("[videoswin] stream ms by span: "
         + ", ".join(f"{k} {v:.2f}" for k, v in sorted(spans.items())))
     del net, x
     torch.cuda.empty_cache()
+    stages = w1_stages(dev)
+    w1 = {key: sum(r[key] * r["blocks_a_forward"] for r in stages)
+          for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    exp_ms = 1e3 * sum(r["sequences"] * r["n"] ** 2 * r["blocks_a_forward"]
+                       for r in stages) / exp_rate()
+    log(f"[w1] a batch's 24 blocks (96 views): W1 {w1['ms']:.2f} ms, least "
+        f"{w1['bound_ms']:.2f} ({w1['bound_ms'] / w1['ms']:.3f} of it), exponentials "
+        f"{exp_ms:.2f} (computed), plain {w1['plain_ms']:.2f} (measured in "
+        f"slices, mean of 3), cuDNN SDPA on the stored mask {w1['library_ms']:.2f} (CUDA "
+        f"events, mean of 10)")
     return {"forward_ms": forward_ms, "least_ms": least_ms, "sdpa_least_ms": sdpa_least_ms,
-            "spans_ms": spans, "counters": counters, "backends": backends,
-            "mask_mb": mask_mb, "mask_bound_mb": bound_mb, "rel_err": rel,
-            "peak_gb": peak_gb}
+            "spans_ms": spans, "counters": counters, "rel_err": rel, "peak_gb": peak_gb,
+            "w1": dict(w1, stages=stages)}
 
 
 # -- phase 6e -----------------------------------------------------------------
@@ -3102,7 +3213,6 @@ def main() -> int:
     stem = phase_s1(dev, pool["s1_launches"])
     timesformer = phase_timesformer(dev)
     norm = phase_n1(dev)
-    videoswin = phase_videoswin(dev)
     level = phase_k2(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ext = phase_extract(dev, tmp)
@@ -3125,6 +3235,9 @@ def main() -> int:
     roofline = phase_roofline(dev)
     installed = phase_installed(broker_rows)
     bench = phase_bench()
+    # last: after its W1 stages, torch.profiler traces in this process have
+    # come back empty (phase 7's K2 launches read 0), so no launch count follows
+    videoswin = phase_videoswin(dev)
 
     print(json.dumps({"ingest": ingest}))
     print(json.dumps({"flow_quality": quality}))
@@ -3285,6 +3398,20 @@ def main() -> int:
                  "step, 12 after a space step, 11 after an MLP), summed",
         "layouts": norm["layouts"], "timesformer_add_norm_stream_ms":
             timesformer["spans_ms"].get("timesformer.add_norm"),
+    }, {
+        "name": "W1 Video Swin window attention, the bias and shift mask computed in place",
+        "route": "cuda", "source": W1_SOURCE, "replaces": W1_REPLACES,
+        "launches": videoswin["counters"]["videoswin.window_attn_launches"],
+        "max_bound_ratio": max(r["bound_ratio"] for r in videoswin["w1"]["stages"]),
+        "ms": videoswin["w1"]["ms"], "plain_ms": videoswin["w1"]["plain_ms"],
+        "bound_ms": videoswin["w1"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": videoswin["w1"]["library_ms"],
+        "library_call": "F.scaled_dot_product_attention (cuDNN) on the stored bf16 "
+                        "[windows x heads, 1, N, N] bias and mask",
+        "shape": "one batch's 24 blocks, 96 views of 32 x 224^2 bf16 (per stage one "
+                 "unshifted and one shifted block, times the stage's depth / 2), summed",
+        "stages": videoswin["w1"]["stages"],
+        "videoswin_sdpa_stream_ms": videoswin["spans_ms"].get("videoswin.sdpa"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1083,9 +1083,9 @@ def test_videoswin_on_the_card_against_the_reference():
     """Video Swin at the published widths and window (one block a stage, 16
     frames of 112x112: 8 x 28 x 28 tokens, the last stage's spatial window
     clamped) on the card against the plain float32 reference on the card:
-    float32 (TF32 off, a fused SDPA backend with the additive mask) at rtol
-    1e-4 / atol 1e-4 on signatures of unit scale (another order of sums),
-    bfloat16 under tests/test_torch_videoswin.py's 2% mean-relative bound."""
+    float32 (TF32 off, W1's float32 route) at rtol 1e-4 / atol 1e-4 on
+    signatures of unit scale (another order of sums), bfloat16 (W1's fast
+    kernel) under tests/test_torch_videoswin.py's 2% mean-relative bound."""
     needs_card()
     from videoquery_torch.nn import video_swin as vs
     from videoquery_torch.testing import videoswin_reference
@@ -1100,40 +1100,6 @@ def test_videoswin_on_the_card_against_the_reference():
     torch.testing.assert_close(net.embed(x), want, rtol=1e-4, atol=1e-4)
     low = net.embed(x.bfloat16())
     assert float((low - want).abs().mean() / want.abs().mean()) < 0.02
-
-
-@pytest.mark.cuda
-def test_videoswin_attention_takes_a_fused_sdpa_backend(monkeypatch):
-    """A bf16 forward of the published depths over 2 views of 32 x 224^2
-    makes 24 attention calls, 12 under a shift mask, each a fused SDPA op
-    inside a videoswin.sdpa span with device events; the masks are built
-    once and never padded or copied in a forward; an input no fused
-    backend takes (float64) raises instead of falling to the math path."""
-    needs_card()
-    from videoquery_torch.nn import video_swin as vs
-
-    net = vs.VideoSwin(vs.make_weights(5)).cuda()
-    x = torch.randn(2, 32, 224, 224, 3, device="cuda").bfloat16()
-    net.embed(x)
-    masks = net._cast[(torch.bfloat16, x.device)]["bias"]
-    ptrs = sorted(b.data_ptr() for b in masks.values())
-    assert len(ptrs) == 24
-    monkeypatch.setattr(profiling, "_state", profiling._State())
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        net.embed(x)
-    torch.cuda.synchronize()
-    rec = trace_record()
-    assert rec.counters == {"videoswin.views": 2, "videoswin.sdpa_calls": 24,
-                            "videoswin.shifted_calls": 12}
-    sdpa = [sp for sp in rec.spans if sp.name == "videoswin.sdpa"]
-    assert len(sdpa) == 24 and all(sp.device_ms is not None for sp in sdpa)
-    ops = {e.key: e.count for e in prof.key_averages()}
-    assert sum(ops.get(name, 0) for name in FUSED_SDPA_OPS) == 24, \
-        {k: v for k, v in ops.items() if "attention" in k}
-    assert not ops.get("aten::constant_pad_nd") and not ops.get("aten::pad"), ops
-    assert sorted(b.data_ptr() for b in masks.values()) == ptrs
-    with pytest.raises(RuntimeError):
-        net.embed(x[:1, :16, :112, :112].double())
 
 
 # -- N1: TimeSformer's residual adds and LayerNorms ------------------------------

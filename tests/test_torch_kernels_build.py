@@ -19,7 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 SOURCES = ("add_norm.cu", "inception_block.cu", "max_pool3d.cu", "query_kernel.cu",
-           "roll.cu", "stem_conv3d.cu", "tvl1_level.cu", "window_warp.cu")
+           "roll.cu", "stem_conv3d.cu", "tvl1_level.cu", "window_attention.cu",
+           "window_warp.cu")
 
 
 def library_name(source: str) -> str:

@@ -26,7 +26,8 @@ from videoquery_torch.testing import installed as inst
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "data", "features", "stock-video-clips_features")
 KERNEL_SOURCES = ("add_norm.cu", "inception_block.cu", "max_pool3d.cu", "query_kernel.cu",
-                  "roll.cu", "stem_conv3d.cu", "tvl1_level.cu", "window_warp.cu")
+                  "roll.cu", "stem_conv3d.cu", "tvl1_level.cu", "window_attention.cu",
+                  "window_warp.cu")
 
 
 @pytest.fixture(scope="module")

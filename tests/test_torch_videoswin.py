@@ -181,7 +181,8 @@ def test_the_geometry_is_the_published_code(dims):
 def test_the_counters_at_the_published_depth(monkeypatch):
     """Depths [2, 2, 18, 2] (tiny widths): 24 attention calls a forward, 12
     of them under a shift mask (1 + 1 + 9 + 1: on 4 x 3 x 3 and 4 x 2 x 2
-    tokens only the time dim shifts), and the views counted."""
+    tokens only the time dim shifts), no W1 launch on the CPU, and the
+    views counted."""
     monkeypatch.setattr(profiling, "_state", profiling._State())
     net = vs.VideoSwin(vs.make_weights(7, embed_dim=32, depths=vs.DEPTHS, heads=(1, 2, 4, 8),
                                        window=WINDOW), window=WINDOW)
@@ -189,7 +190,7 @@ def test_the_counters_at_the_published_depth(monkeypatch):
         net.embed(volume((3, 8, 48, 48, 3), 3))
     rec = profiling.trace_record()
     assert rec.counters == {"videoswin.views": 3, "videoswin.sdpa_calls": 24,
-                            "videoswin.shifted_calls": 12}
+                            "videoswin.shifted_calls": 12, "videoswin.window_attn_launches": 0}
     totals = rec.totals()
     assert [totals[f"videoswin.{k}"]["calls"] for k in ("embed", "attn", "mlp", "merge",
                                                          "sdpa")] == [1, 24, 24, 3, 24]
@@ -378,7 +379,7 @@ def test_the_spans_and_the_counters_in_a_cpu_trace(tsn, monkeypatch):
     # 2 clips x 3 crops; 40x60 frames give 2 x 8 x 12 tokens, whose first two
     # stages shift in H and W
     assert rec.counters == {"videoswin.views": 6, "videoswin.sdpa_calls": 8,
-                            "videoswin.shifted_calls": 2}
+                            "videoswin.shifted_calls": 2, "videoswin.window_attn_launches": 0}
     assert not {"extract.flow", "extract.flow_net", "extract.inflight_wait"} & set(rec.totals())
 
 

@@ -19,10 +19,11 @@ counterparts too: the fused Inception block
 ``python -m videoquery_torch.tools.inception_block_bench``) and the
 dynamic-shift roll (``kernels/csrc/roll.cu``,
 ``python -m videoquery_torch.tools.roll_repro``). I3D's max pools run on
-a sixth and its bf16 stem conv on a seventh, and TimeSformer's residual
-adds and LayerNorms on an eighth, which port no Pallas kernel
-(``kernels/csrc/max_pool3d.cu``, ``kernels/csrc/stem_conv3d.cu``,
-``kernels/csrc/add_norm.cu``). The
+a sixth and its bf16 stem conv on a seventh, TimeSformer's residual adds
+and LayerNorms on an eighth and Video Swin's window attention on a ninth,
+which port no Pallas kernel (``kernels/csrc/max_pool3d.cu``,
+``kernels/csrc/stem_conv3d.cu``, ``kernels/csrc/add_norm.cu``,
+``kernels/csrc/window_attention.cu``). The
 JAX package
 ``videoquery`` is the reference this package is tested against; this
 package imports nothing of it and keeps its own copies of the jax-free

@@ -27,18 +27,21 @@ or a zero row where it is pad), and the window reverse, the roll back and
 the unpad are one gather of the attention's rows back into token order,
 added to the stream in place. The windowed rows are in (view, position in
 window, window) order, and the qkv weight's columns are held in (head,
-q/k/v, channel) order, so q, k and v are strided views [windows * heads,
-views, N, 32] of qkv's output: each attention is one
-``F.scaled_dot_product_attention`` call whose additive mask, the block's
-bias and shift mask [windows * heads, 1, N, N] (``_bias``), is built once a
-block and broadcast over the views. The net runs in the dtype of its
-input, float32 or bfloat16: the linears are ``torch.addmm`` (cuBLAS on the
-card: bf16 operands, float32 sums), LayerNorm's statistics and the softmax
-are computed in float32. On the card every attention call runs under
-``sdpa_kernel`` limited to the fused backends that take a mask; where none
-of them takes an input, the call raises instead of falling to the math
-path. On the CPU the math path is allowed. The working-type weights and
-the masks are built once and cached, dropped when a parameter changes.
+q/k/v, channel) order, so each block's attention is one call of
+``kernels/window_attention.py::window_attention`` on qkv's output as it
+lies, which returns the rows ``proj`` reads. On the card that is one
+launch of the hand-written kernel W1, which computes each logit's bias
+from the block's table and its shift mask from the windows' region ids:
+no [N, N] tensor is built. On the CPU it is the plain version beside the
+kernel, ``window_attention_reference``, on the block's ``bias_geometry``:
+the bias and mask [windows * heads, 1, N, N] built in float32 from
+``relative_position_index`` and ``region_mask``, rounded once, and SDPA on
+the math path. The net runs in the dtype of its input, float32 or
+bfloat16: the linears are ``torch.addmm`` (cuBLAS on the card: bf16
+operands, float32 sums), LayerNorm's statistics and the softmax are
+computed in float32. The working-type weights and each block's bias table
+(float32, transposed so a head's rows lie together) are built once and
+cached, dropped when a parameter changes.
 
 The parameter tree is the port's public layout (``make_weights``): dense
 weights [in, out], the patch projection DHWIO [2, 4, 4, 3, 128], one entry
@@ -53,8 +56,9 @@ Spans (``core/profiling.py``), each with device events: ``videoswin.embed``
 ``videoswin.sdpa`` around the attention call alone, and one
 ``videoswin.mlp``; ``videoswin.merge`` around each PatchMerging. Counters:
 ``videoswin.sdpa_calls`` (24 a forward), ``videoswin.shifted_calls`` (the
-calls under a shift mask: 12 a forward at the published sizes) and
-``videoswin.views`` (the volumes embedded).
+calls under a shift mask: 12 a forward at the published sizes),
+``videoswin.window_attn_launches`` (W1's launches: 24 a forward on the
+card, 0 on the CPU) and ``videoswin.views`` (the volumes embedded).
 """
 
 from __future__ import annotations
@@ -65,9 +69,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from videoquery_torch.core.profiling import count, span
+from videoquery_torch.kernels import window_attention as w1
 
 EMBED_DIM = 128
 DEPTHS = (2, 2, 18, 2)
@@ -84,10 +88,6 @@ MASK_VALUE = -100.0      # compute_mask's fill between regions
 PATCH_EMBED = "patch_embed/proj"
 HEAD = "cls_head/fc_cls"
 TABLE = "relative_position_bias_table"
-
-# the backends an attention call may take on the card: those that take an
-# additive mask (flash takes none)
-FUSED_SDPA = [SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
 
 # PatchMerging's (h, w) offsets in the order it concatenates them: x0 (0, 0),
 # x1 (1, 0), x2 (0, 1), x3 (1, 1)
@@ -210,6 +210,18 @@ def region_mask(padded, window, shift) -> np.ndarray:
     return np.where(windows[:, None, :] != windows[:, :, None], MASK_VALUE, 0.0)
 
 
+def bias_geometry(dims, window, shift, table_window) -> tuple[np.ndarray, np.ndarray | None]:
+    """The plain attention's geometry of a block on tokens ``dims`` with
+    its clamped ``window`` and ``shift``: the bias table's rows [N, N]
+    (``relative_position_index(table_window)[:N, :N]``) and the shift mask
+    [windows, N, N] (``region_mask``; None where the block does not
+    shift)."""
+    n = math.prod(window)
+    padded = [-(-d // w) * w for d, w in zip(dims, window)]
+    mask = region_mask(padded, window, shift) if any(shift) else None
+    return relative_position_index(table_window)[:n, :n], mask
+
+
 def window_rows(dims, window, shift) -> tuple[np.ndarray, np.ndarray, int]:
     """The gathers of one view's block on tokens [D, H, W] in (d, h, w)
     order: ``src`` [N * windows], each windowed row's source token (row
@@ -261,8 +273,9 @@ class VideoSwin(nn.Module):
         rows = math.prod(2 * w - 1 for w in self.window)
         if self.params[_key("layers/0/blocks/0/attn", TABLE)].shape[0] != rows:
             raise ValueError(f"the bias tables do not fit a window of {self.window}")
-        # the weights in a working type and the blocks' masks by (dtype,
-        # device); dropped when a parameter's storage or version changes
+        # the weights in a working type and the blocks' bias tables by
+        # (dtype, device); dropped when a parameter's storage or version
+        # changes
         self._cast: dict[tuple, dict] = {}
         self._cache_stamp: tuple | None = None
         # window geometry by (dims, window, shift), on each device
@@ -271,8 +284,9 @@ class VideoSwin(nn.Module):
     def _weights(self, x: torch.Tensor) -> dict:
         """Every parameter in x's dtype and on its device, the patch
         projection as a [prod(patch) * C_in, C] matrix, each qkv weight and
-        bias with its columns in (head, q/k/v, channel) order, and an empty
-        cache of the blocks' masks (``_bias``)."""
+        bias with its columns in (head, q/k/v, channel) order, and each
+        block's bias table in float32, transposed so a head's rows lie
+        together."""
         stamp = tuple((p.data_ptr(), p._version) for p in self.params.values())
         if stamp != self._cache_stamp:
             self._cast.clear()
@@ -283,8 +297,11 @@ class VideoSwin(nn.Module):
             cast = {k: v.to(x.dtype) for k, v in p.items()}
             w = p[_key(PATCH_EMBED, "w")]
             cast["patch_w"] = w.reshape(-1, w.shape[-1]).to(x.dtype)
+            cast["tables"] = {}
             for i, (depth, h) in enumerate(zip(self.depths, self.heads)):
                 for j in range(depth):
+                    table = p[_key(f"layers/{i}/blocks/{j}/attn", TABLE)]
+                    cast["tables"][f"layers/{i}/blocks/{j}/attn"] = table.t().contiguous().t()
                     name = f"layers/{i}/blocks/{j}/attn/qkv"
                     qw, qb = p[_key(name, "w")], p[_key(name, "b")]
                     c = qw.shape[0]
@@ -292,44 +309,19 @@ class VideoSwin(nn.Module):
                         .reshape(c, 3 * c).to(x.dtype)
                     cast[_key(name, "b")] = qb.view(3, h, c // h).permute(1, 0, 2) \
                         .reshape(3 * c).to(x.dtype)
-            cast["bias"] = {}
             self._cast[(x.dtype, x.device)] = cast
         return cast
 
     def _geometry(self, dims, shift, device) -> tuple:
-        """(window, shift, src, back, windows) of a block on tokens
-        ``dims`` with the block's nominal ``shift``, the gathers on
-        ``device``."""
+        """(window, shift, src, back) of a block on tokens ``dims`` with the
+        block's nominal ``shift``, the gathers on ``device``."""
         key = (tuple(dims), tuple(shift), device)
         if key not in self._geometries:
             window, use_shift = get_window_size(dims, self.window, shift)
-            src, back, windows = window_rows(dims, window, use_shift)
+            src, back, _windows = window_rows(dims, window, use_shift)
             self._geometries[key] = (window, use_shift, torch.from_numpy(src).to(device),
-                               torch.from_numpy(back).to(device), windows)
+                                     torch.from_numpy(back).to(device))
         return self._geometries[key]
-
-    def _bias(self, w: dict, name: str, dims, window, shift) -> torch.Tensor:
-        """The additive mask of block ``name`` on tokens ``dims``: its bias
-        table at ``relative_position_index(self.window)[:N, :N]``, plus the
-        shift mask where the block shifts, [windows * heads, 1, N, N] in the
-        working type; built in float32 and rounded once, on first use."""
-        key = (name, tuple(dims))
-        bias = w["bias"].get(key)
-        if bias is None:
-            table = self.params[_key(name, TABLE)].detach().to(w[_key(name, TABLE)].device)
-            n = math.prod(window)
-            index = torch.from_numpy(relative_position_index(self.window)[:n, :n].reshape(-1))
-            rel = table[index.to(table.device)].view(n, n, -1).permute(2, 0, 1)   # [h, N, N]
-            padded = [-(-d // ws) * ws for d, ws in zip(dims, window)]
-            windows = math.prod(p // ws for p, ws in zip(padded, window))
-            if any(shift):
-                mask = torch.from_numpy(region_mask(padded, window, shift)).to(rel)
-                full = rel[None] + mask[:, None]
-            else:
-                full = rel[None].expand(windows, -1, -1, -1)
-            bias = full.reshape(-1, 1, n, n).to(w[_key(name, TABLE)].dtype).contiguous()
-            w["bias"][key] = bias
-        return bias
 
     def _linear(self, w: dict, name: str, x: torch.Tensor) -> torch.Tensor:
         """x [..., in] @ W + b -> [M, out] (x's rows flattened)."""
@@ -343,27 +335,28 @@ class VideoSwin(nn.Module):
         """Block j of stage i, its attention half, on x [B, D, H, W, C] in
         place: x += W-MSA of norm1(x), shifted in odd blocks."""
         b, dims, c = x.shape[0], x.shape[1:4], x.shape[4]
-        heads = self.heads[i]
         pre = f"layers/{i}/blocks/{j}"
         nominal = tuple(ws // 2 for ws in self.window) if j % 2 else (0, 0, 0)
         with span("videoswin.attn", x.device):
-            window, shift, src, back, windows = self._geometry(dims, nominal, x.device)
-            n, tokens = math.prod(window), math.prod(dims)
+            window, shift, src, back = self._geometry(dims, nominal, x.device)
+            tokens = math.prod(dims)
             z = self._norm(w, f"{pre}/norm1", x).view(b, tokens, c)
             if src.numel() > tokens:
                 z = F.pad(z, (0, 0, 0, 1))                              # the zero row
             zw = _rows(z, src)                                          # [B, N * nW, C]
             qkv = self._linear(w, f"{pre}/attn/qkv", zw)                # (head, qkv, ch) cols
-            qkv = qkv.view(b, n, windows * heads, 3, c // heads).permute(3, 2, 0, 1, 4)
-            q, k, v = qkv.unbind(0)                                     # [nW * h, B, N, hd]
-            bias = self._bias(w, f"{pre}/attn", dims, window, shift)
-            with span("videoswin.sdpa", x.device):
-                o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                                   scale=(c // heads) ** -0.5)
+            launches = w1.LAUNCHES
+            table = w["tables"][f"{pre}/attn"]
+            with span("videoswin.sdpa", x.device):                      # (view, pos, window) rows
+                if qkv.is_cuda:
+                    rows = w1.window_attention(qkv, table, b, dims, window, shift, self.window)
+                else:
+                    rows = w1.window_attention_reference(
+                        qkv, table, b, *bias_geometry(dims, window, shift, self.window))
             count("videoswin.sdpa_calls")
+            count("videoswin.window_attn_launches", w1.LAUNCHES - launches)
             if any(shift):
                 count("videoswin.shifted_calls")
-            rows = o.permute(1, 2, 0, 3).reshape(-1, c)                 # (view, pos, window)
             y = self._linear(w, f"{pre}/attn/proj", rows).view(b, -1, c)
             x.view(b, tokens, c).add_(_rows(y, back))
 
@@ -410,15 +403,13 @@ class VideoSwin(nn.Module):
         logits only with the head)."""
         w = self._weights(x)
         count("videoswin.views", x.shape[0])
-        backends = FUSED_SDPA if x.is_cuda else FUSED_SDPA + [SDPBackend.MATH]
-        with sdpa_kernel(backends):
-            tokens = self._embed_tokens(w, x)
-            for i, depth in enumerate(self.depths):
-                for j in range(depth):
-                    self._attn(w, i, j, tokens)
-                    self._mlp(w, i, j, tokens)
-                if i + 1 < len(self.depths):
-                    tokens = self._merge(w, i, tokens)
+        tokens = self._embed_tokens(w, x)
+        for i, depth in enumerate(self.depths):
+            for j in range(depth):
+                self._attn(w, i, j, tokens)
+                self._mlp(w, i, j, tokens)
+            if i + 1 < len(self.depths):
+                tokens = self._merge(w, i, tokens)
         feats = self._norm(w, "norm", tokens).flatten(1, 3).float().mean(1)
         out = {"global_pool": feats}
         if head:
