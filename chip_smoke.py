@@ -1366,7 +1366,7 @@ def phase_videoswin(dev) -> dict:
     if pads:
         raise AssertionError(f"a forward padded {pads} tensors")
     spans = {name: t["device_ms"] for name, t in rec.totals().items()
-             if name.startswith("videoswin.")}
+             if name.startswith("videoswin.") and t["device_ms"] is not None}
     log(f"[videoswin] 12 views of 32 x 224^2 bf16: {forward_ms:.2f} ms a forward (CUDA "
         f"events, mean of 3), least {least_ms:.2f} ({least_ms / forward_ms:.2f} of it); "
         f"attention cores {spans.get('videoswin.sdpa', 0):.2f} stream ms, least "

@@ -181,8 +181,9 @@ def test_the_geometry_is_the_published_code(dims):
 def test_the_counters_at_the_published_depth(monkeypatch):
     """Depths [2, 2, 18, 2] (tiny widths): 24 attention calls a forward, 12
     of them under a shift mask (1 + 1 + 9 + 1: on 4 x 3 x 3 and 4 x 2 x 2
-    tokens only the time dim shifts), no W1 launch on the CPU, and the
-    views counted."""
+    tokens only the time dim shifts), no W1 launch on the CPU, the views
+    counted, and 1 + 48 + 3 + 1 LayerNorms, 48 residual adds and 48 window
+    gathers a forward."""
     monkeypatch.setattr(profiling, "_state", profiling._State())
     net = vs.VideoSwin(vs.make_weights(7, embed_dim=32, depths=vs.DEPTHS, heads=(1, 2, 4, 8),
                                        window=WINDOW), window=WINDOW)
@@ -194,6 +195,46 @@ def test_the_counters_at_the_published_depth(monkeypatch):
     totals = rec.totals()
     assert [totals[f"videoswin.{k}"]["calls"] for k in ("embed", "attn", "mlp", "merge",
                                                          "sdpa")] == [1, 24, 24, 3, 24]
+    assert [totals[f"videoswin.{k}"]["calls"] for k in ("norm", "add", "window_gather")] == \
+        [53, 48, 48]
+
+
+def test_the_glue_spans_nest_in_their_layers_and_change_no_bit(params, monkeypatch):
+    """In a CPU trace of the small net (depths [2, 2, 2, 2]) each
+    LayerNorm, residual add and window gather is a span of its own inside
+    the layer that runs it, the final norm inside the caller's span; the
+    traced forward gives the untraced one's bits."""
+    monkeypatch.setattr(profiling, "_state", profiling._State())
+    net = small_net(params)
+    x = volume((2, 8, 48, 48, 3), 4)
+    want = net.embed(x)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("extract.rgb_net"):
+            got = net.embed(x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    rec = profiling.trace_record()
+    by_id = {s.id: s for s in rec.spans}
+    ordered = sorted(rec.spans, key=lambda s: s.start_ns)
+
+    def parents(name):
+        return [by_id[s.parent].name.split(".")[-1] for s in ordered if s.name == name]
+
+    block = ["attn", "mlp"] * 2
+    assert parents("videoswin.norm") == ["embed"] + (block + ["merge"]) * 3 + block + ["rgb_net"]
+    assert parents("videoswin.add") == block * 4
+    assert parents("videoswin.window_gather") == ["attn"] * 16
+    assert all(not s.device_ms for s in rec.spans)           # no CUDA event on the CPU
+
+
+def test_untraced_the_glue_spans_open_no_range(params, monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("a range opened while untraced")
+
+    monkeypatch.setattr(profiling, "_state", profiling._State())
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    small_net(params).embed(volume((1, 8, 48, 48, 3), 5))
+    assert profiling.trace_record() is None
 
 
 def test_the_sampler_is_mmactions_test_mode_sample_frames():

@@ -18,7 +18,14 @@ work is done, never inside the span. A span never synchronises. The
 device ms is the stream's time from the first event to the second, so it
 also holds any time the stream sat idle between them, waiting for the host
 to queue the span's work: a span meant to time a kernel opens right before
-its launch.
+its launch. A span opened without ``device`` records no CUDA event and
+has no device ms: its ``vq.*`` range alone marks it.
+
+The range is enough to attribute the device's work to a span: each device
+operation in the Chrome trace carries the correlation id of the launch
+that queued it, and that launch lies on the host thread inside the ranges
+that were open then. Read so, a span's device time is the work launched
+inside it, with none of the stream's idle time in it.
 
 A record holds one traced window: it begins where ``device_trace``
 begins, or at the first span or count made with the profiler on after one

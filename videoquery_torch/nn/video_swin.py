@@ -54,7 +54,15 @@ Spans (``core/profiling.py``), each with device events: ``videoswin.embed``
 (the patch projection and its norm); in each block one ``videoswin.attn``
 (norm1, the gathers, qkv, the attention, proj and the residual add), with
 ``videoswin.sdpa`` around the attention call alone, and one
-``videoswin.mlp``; ``videoswin.merge`` around each PatchMerging. Counters:
+``videoswin.mlp``; ``videoswin.merge`` around each PatchMerging. Inside
+them, around the glue between the products and with no device events (only
+their ``vq.*`` ranges, which a device trace attributes the launches to):
+``videoswin.norm`` around each LayerNorm call (the embedding's, norm1,
+norm2, each merge's and the final norm: 1 + 24 + 24 + 3 + 1 = 53 a forward
+at the published depths, the last one inside the caller's span),
+``videoswin.add`` around each residual add alone (48), and
+``videoswin.window_gather`` around each block's gather into windows (with
+the zero row's pad) and its gather back (48). Counters:
 ``videoswin.sdpa_calls`` (24 a forward), ``videoswin.shifted_calls`` (the
 calls under a shift mask: 12 a forward at the published sizes),
 ``videoswin.window_attn_launches`` (W1's launches: 24 a forward on the
@@ -329,7 +337,9 @@ class VideoSwin(nn.Module):
 
     @staticmethod
     def _norm(w: dict, name: str, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, (x.shape[-1],), w[_key(name, "w")], w[_key(name, "b")], LN_EPS)
+        with span("videoswin.norm"):
+            return F.layer_norm(x, (x.shape[-1],), w[_key(name, "w")], w[_key(name, "b")],
+                                LN_EPS)
 
     def _attn(self, w: dict, i: int, j: int, x: torch.Tensor) -> None:
         """Block j of stage i, its attention half, on x [B, D, H, W, C] in
@@ -341,9 +351,10 @@ class VideoSwin(nn.Module):
             window, shift, src, back = self._geometry(dims, nominal, x.device)
             tokens = math.prod(dims)
             z = self._norm(w, f"{pre}/norm1", x).view(b, tokens, c)
-            if src.numel() > tokens:
-                z = F.pad(z, (0, 0, 0, 1))                              # the zero row
-            zw = _rows(z, src)                                          # [B, N * nW, C]
+            with span("videoswin.window_gather"):
+                if src.numel() > tokens:
+                    z = F.pad(z, (0, 0, 0, 1))                          # the zero row
+                zw = _rows(z, src)                                      # [B, N * nW, C]
             qkv = self._linear(w, f"{pre}/attn/qkv", zw)                # (head, qkv, ch) cols
             launches = w1.LAUNCHES
             table = w["tables"][f"{pre}/attn"]
@@ -358,14 +369,19 @@ class VideoSwin(nn.Module):
             if any(shift):
                 count("videoswin.shifted_calls")
             y = self._linear(w, f"{pre}/attn/proj", rows).view(b, -1, c)
-            x.view(b, tokens, c).add_(_rows(y, back))
+            with span("videoswin.window_gather"):
+                y = _rows(y, back)
+            with span("videoswin.add"):
+                x.view(b, tokens, c).add_(y)
 
     def _mlp(self, w: dict, i: int, j: int, x: torch.Tensor) -> None:
         """Block j of stage i, its MLP half, on x in place."""
         pre = f"layers/{i}/blocks/{j}"
         with span("videoswin.mlp", x.device):
             h = F.gelu(self._linear(w, f"{pre}/mlp/fc1", self._norm(w, f"{pre}/norm2", x)))
-            x.view(-1, x.shape[-1]).add_(self._linear(w, f"{pre}/mlp/fc2", h))
+            y = self._linear(w, f"{pre}/mlp/fc2", h)
+            with span("videoswin.add"):
+                x.view(-1, x.shape[-1]).add_(y)
 
     def _merge(self, w: dict, i: int, x: torch.Tensor) -> torch.Tensor:
         """PatchMerging after stage i: x [B, D, H, W, C] -> [B, D, H/2, W/2,
